@@ -1,0 +1,2 @@
+"""Bit-domain and DSP primitives, conv codes and the Viterbi decoder
+(counterpart of gmr1_tpu/ops/)."""

@@ -1,0 +1,42 @@
+"""Packed-byte <-> unpacked-bit conversion, MSB first.
+
+Counterpart of gmr1_tpu/ops/bits.py.  Conventions (osmocom):
+  hard bit ("ubit"): uint8 0/1
+  soft bit ("sbit"): int8 in [-127, 127]; positive = bit 0, negative = bit 1
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_SHIFTS = np.arange(7, -1, -1, dtype=np.uint8)  # MSB first
+
+
+def _u8(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.uint8)
+    return torch.as_tensor(np.asarray(x, np.uint8))
+
+
+def unpack_bits(data, nbits: int | None = None):
+    """Unpack bytes (..., B) -> bits (..., 8*B or nbits), MSB first."""
+    data = _u8(data)
+    sh = torch.as_tensor(_SHIFTS, device=data.device)
+    bits = (data[..., :, None] >> sh) & 1
+    bits = bits.reshape(*data.shape[:-1], data.shape[-1] * 8)
+    return bits if nbits is None else bits[..., :nbits]
+
+
+def pack_bits(bits, nbytes: int | None = None):
+    """Pack bits (..., N) -> bytes (..., ceil(N/8)), MSB first; bits past
+    the input length count as zero."""
+    bits = _u8(bits)
+    n = bits.shape[-1]
+    nb = (n + 7) // 8 if nbytes is None else nbytes
+    pad = nb * 8 - n
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    bits = bits.reshape(*bits.shape[:-1], nb, 8).to(torch.int32)
+    sh = torch.as_tensor(_SHIFTS.astype(np.int32), device=bits.device)
+    return torch.sum(bits << sh, dim=-1).to(torch.uint8)

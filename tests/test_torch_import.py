@@ -1,0 +1,102 @@
+"""Isolation and no-fallback rules of the port (gmr1_tpu_torch).
+
+  * every module imports without JAX and without gmr1_tpu;
+  * asking for CUDA where there is none raises — nothing quietly runs on
+    the CPU instead;
+  * the kernels' CUDA entry points refuse CPU tensors, and building a
+    kernel without nvcc raises rather than falling back.
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from gmr1_tpu_torch import kernels
+from gmr1_tpu_torch.channelizer import pfb
+from gmr1_tpu_torch.ops import viterbi
+from gmr1_tpu_torch.rx.wideband import WidebandReceiver
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "gmr1_tpu_torch"
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import gmr1_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(gmr1_tpu_torch.__path__,
+                                                "gmr1_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "gmr1_tpu"))
+print(len(names), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert int(res.stdout.split()[0]) >= 20
+
+
+def test_sources_name_no_jax():
+    for path in PKG.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert words[1].split(".")[0] not in ("jax", "gmr1_tpu"), \
+                    (path, line)
+
+
+def test_cuda_receiver_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    with pytest.raises(RuntimeError, match="cuda"):
+        WidebandReceiver(np.zeros((16, 2), np.float32), 500e3,
+                         1525e6 + 31250.0 * 500, device="cuda")
+
+
+def test_kernel_library_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    for name in kernels.KERNELS:
+        with pytest.raises(RuntimeError):
+            kernels.library(name)
+
+
+def test_kernel_entry_points_refuse_cpu_tensors():
+    sym = torch.zeros((2, 8, 2))
+    sign = torch.ones((32, 2))
+    with pytest.raises(ValueError):
+        viterbi._decode_trellis_cuda(sym, sign, True)
+    x = torch.zeros((100, 2))
+    wa = torch.zeros((2 * 3, 4))
+    with pytest.raises(ValueError):
+        pfb._branch_filter_cuda(x, wa, 4, 4)
+    assert viterbi.decode_trellis.launches == 0
+    assert pfb.branch_filter.launches == 0
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.build("viterbi")
+
+
+def test_unported_options_raise():
+    wb = np.zeros((16, 2), np.float32)
+    for kw in (dict(mesh=object()), dict(beams=2),
+               dict(wide_channels=[1]), dict(h2d_dtype="int16")):
+        with pytest.raises(NotImplementedError):
+            WidebandReceiver(wb, 500e3, 1525e6 + 31250.0 * 500, **kw)

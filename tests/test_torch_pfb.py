@@ -1,0 +1,135 @@
+"""Parity of the port's channelizer (gmr1_tpu_torch.channelizer.pfb) with
+gmr1_tpu, and of its streamed ingest step with the JAX receiver's.
+
+On the CPU the port's analysis runs the plain branch filter (the CPU
+form of the CUDA kernel kernels/pfb.cu) and the float32 channel DFT.
+It must agree with the JAX shifted-accumulate form `_analyze_block` and
+with the Pallas slab kernel in interpret mode (f32 DFT) to rtol 2e-4 /
+atol 1e-4, the tolerance of the JAX package's own Pallas parity test
+(summation order differs).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from gmr1_tpu.channelizer import Channelizer as JChannelizer
+from gmr1_tpu.channelizer.pfb import (PFBAnalyzer as JPFBAnalyzer,
+                                      _analyze_block, _analyze_block_fused)
+from gmr1_tpu.ops import pallas_pfb
+from gmr1_tpu.rx.wideband import WidebandReceiver as JRx
+from gmr1_tpu_torch.channelizer import pfb
+from gmr1_tpu_torch.rx.wideband import WidebandReceiver as TRx
+
+torch.set_num_threads(2)
+
+GEOMS = [(16, 3, 40), (64, 5, 21), (64, 5, 24)]
+TOL = dict(rtol=2e-4, atol=1e-4)
+FS = 500e3
+CENTER = 1525e6 + 31250.0 * 500
+
+
+def geom_case(rng, m, p, r_cnt):
+    hop = m // 2
+    x = rng.normal(size=(r_cnt * hop + p * m, 2)).astype(np.float32)
+    h_poly = rng.normal(size=(m, p)).astype(np.float32)
+    return x, h_poly, hop
+
+
+@pytest.mark.parametrize("m,p,r_cnt", GEOMS)
+def test_block_matches_xla_analysis(rng, m, p, r_cnt):
+    x, h_poly, hop = geom_case(rng, m, p, r_cnt)
+    want = np.asarray(_analyze_block(jnp.asarray(x), jnp.asarray(h_poly),
+                                     m, p, hop))
+    got = pfb.PFBAnalyzer.from_numpy(h_poly).block(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("m,p,r_cnt", GEOMS)
+def test_block_matches_pallas_interpret(rng, m, p, r_cnt):
+    x, h_poly, hop = geom_case(rng, m, p, r_cnt)
+    wa = jnp.asarray(pallas_pfb.slab_weights(h_poly, m, p, hop))
+    want = np.asarray(_analyze_block_fused(jnp.asarray(x), wa, m, p, hop,
+                                           interpret=True, dft_bf16=False))
+    got = pfb.PFBAnalyzer.from_numpy(h_poly).block(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("m,p,r_cnt", GEOMS)
+def test_branch_filter_matches_pallas_interpret(rng, m, p, r_cnt):
+    """The plain branch filter is the Pallas kernel's FIR without the
+    128-lane padding: same tables, same packed activation."""
+    x, h_poly, hop = geom_case(rng, m, p, r_cnt)
+    hp = -(-hop // 128) * 128
+    wa_j = pallas_pfb.slab_weights(h_poly, m, p, hop)
+    wa_t = pfb.slab_weights(h_poly, m, p, hop)
+    np.testing.assert_array_equal(wa_t, wa_j[:, :hop])
+    z = pallas_pfb.to_slab(jnp.asarray(x), p, hop, r_cnt)
+    want = np.asarray(pallas_pfb.branch_filter_slab(
+        z, jnp.asarray(wa_j), m, p, hop, r_cnt, interpret=True))
+    want = want.reshape(r_cnt, 4, hp)[..., :hop].reshape(r_cnt, 4 * hop)
+    got = pfb.branch_filter(torch.from_numpy(x), torch.from_numpy(wa_t),
+                            r_cnt, hop)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    dft_j = pallas_pfb.dft_packed_slab(m, hop).reshape(4, hp, 2 * m)
+    np.testing.assert_array_equal(pfb.dft_packed_slab(m, hop),
+                                  dft_j[:, :hop].reshape(4 * hop, 2 * m))
+
+
+def test_analyzer_from_taps_and_chunked_call(rng):
+    m = 16
+    taps = rng.normal(size=5 * m - 3).astype(np.float32)
+    ja = JPFBAnalyzer(m, taps, chunk_frames=24)
+    ta = pfb.PFBAnalyzer(m, taps, chunk_frames=24)
+    np.testing.assert_array_equal(ta.h_poly, np.asarray(ja.h_poly))
+    x = rng.normal(size=(50 * (m // 2) + 3, 2)).astype(np.float32)
+    np.testing.assert_allclose(ta(torch.from_numpy(x)).numpy(),
+                               np.asarray(ja(jnp.asarray(x))), **TOL)
+
+
+def test_channelizer_and_rrc_geometry():
+    jz, tz = JChannelizer(FS, CENTER, sps=4), pfb.Channelizer(FS, CENTER, 4)
+    assert (tz.n_chans, tz.rotation, tz.pfb_center_freq, tz.chan_rate) == \
+        (jz.n_chans, jz.rotation, jz.pfb_center_freq, jz.chan_rate)
+    np.testing.assert_array_equal(tz.analyzer.h_poly,
+                                  np.asarray(jz.analyzer.h_poly))
+    jr, tr = jz._rrc_resampler(1), tz._rrc_resampler(1)
+    np.testing.assert_array_equal(tr.branches, jr.branches)
+    fr = pfb.ArbResampler.from_branches(jr.ratio, jr.branches)
+    for r in (tr, fr):
+        for a, b in zip(r._geometry(5000), jr._geometry(5000)):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(r.window_geometry(3744, 3744),
+                        jr.window_geometry(3744, 3744)):
+            np.testing.assert_array_equal(a, b)
+        k_t, w_t = r.window_matrix(3744, 3744)
+        k_j, w_j = jr.window_matrix(3744, 3744)
+        assert k_t == k_j
+        np.testing.assert_array_equal(w_t, w_j)
+
+
+def test_off_grid_rate_is_refused():
+    with pytest.raises(NotImplementedError):
+        pfb.Channelizer(900e3, CENTER)
+
+
+def test_streamed_ingest_matches_jax(rng):
+    """The port's ingest step, block by block with its carried state,
+    against the JAX receiver's jitted step on the same blocks."""
+    dummy = np.zeros((16, 2), np.float32)
+    jrx = JRx(dummy, FS, CENTER, sps=4)
+    trx = TRx(dummy, FS, CENTER, sps=4, device="cpu")
+    assert (trx.n_block, trx.T_buf, trx.T_tail, trx.S_b) == \
+        (jrx.n_block, jrx.T_buf, jrx.T_tail, jrx.S_b)
+    j_state, t_state = jrx._state, trx._state
+    for _ in range(3):
+        x = rng.normal(size=(jrx.n_block, 2)).astype(np.float32)
+        out = jrx._step(jnp.asarray(x), *j_state)
+        j_stream, j_state = out[0], out[1:]
+        t_stream, t_state = trx._step(torch.from_numpy(x), *t_state)
+        np.testing.assert_allclose(t_stream.numpy(), np.asarray(j_stream),
+                                   **TOL)
+        for a, b in zip(t_state, j_state):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)

@@ -7,22 +7,34 @@ result line):
 
   1. environment  card name and power limit (nvidia-smi), torch / CUDA
                   versions, nvcc; a CUDA device is required.
-  2. build        both hand-written kernels from gmr1_tpu_torch/kernels/
-                  into gmr1_tpu_torch/_build/.
+  2. build        the three hand-written kernels from
+                  gmr1_tpu_torch/kernels/ into gmr1_tpu_torch/_build/,
+                  one nvcc per source, all started together.
   3. kernel V     Viterbi kernel vs its plain PyTorch version on the card:
                   K5_12 flush, K5_14 flush, TCH3_K7 and K9_13 tail-biting
-                  at B=2048 seeded integer-sbit bursts, and K5_12 at the
-                  receiver's CCCH batch; bits and metric exact.
+                  at B=2048 seeded integer-sbit bursts; K5_12 at the
+                  receiver's CCCH batch; and the traffic path's shapes at
+                  the receiver's batches (TCH3 speech TCH3_K7 T=48, FACCH9
+                  K5_12 T=320, TCH9 9k6 K5_12 T=484, FACCH3 K5_14 T=96);
+                  bits and metric exact.
   4. kernel P     PFB branch-filter kernel vs its plain version at the
                   34 MHz geometry (M=1088, P=10, R=20000): the channel
                   bank within rtol 2e-4 / atol 1e-4.
-  5. slice        a synthetic 34 MHz L-band capture with every usable grid
+  5. kernel A5    A5/1 keystream kernel vs its plain version at the
+                  receiver's NT9 batch (8512 frame numbers, 658 bits) and
+                  vs the a5.c transcription `keystream_np`: bit-exact.
+  6. slice        a synthetic 34 MHz L-band capture with every usable grid
                   channel live (FCCH every 8 frames, SI1 BCCH at k%8==2,
-                  one CCCH burst at k%8==3, noise) through
+                  one CCCH burst at k%8==3, noise); the carriers of comb
+                  stream 0 also carry a TCH3/TCH9 story (IMM.ASS, speech,
+                  FACCH3 ASS.CMD.1, DKABs, FACCH9, ciphered 9k6 CSD,
+                  silence) and those of stream 1 a TCH9 re-assignment
+                  story (two ASS.CMD.1s, two CSD trains); through
                   WidebandReceiver(device="cuda").run(): every seeded ARFCN
-                  acquired, every decoded BCCH/CCCH L2 bit-exact against
-                  the synthesis truth, >= 3 SI1 frames per carrier, and
-                  both kernels launched by the receiver.
+                  acquired, every decoded BCCH/CCCH/FACCH3/FACCH9 L2
+                  bit-exact against the synthesis truth, speech, DKAB,
+                  CSD order and TCH3 teardown checked per carrier, and
+                  all three kernels launched by the receiver.
 
 The last three lines are the card's name and power limit, a JSON object
 with each kernel's launches, error and times, and
@@ -48,6 +60,9 @@ NS = 4                        # payload streams of the comb synthesis
 CENTER_ARFCN = 544            # 34 MHz grid channels map to ARFCN 12..1075
 FS = 34e6
 CONTENT_BLOCKS = 6            # after one leading noise block: 2.24 s
+KC = np.zeros(8, np.uint8)    # the receiver's default A5/1 key
+TN3, P3 = 10, 9               # the IMM.ASS TCH3 slot and DKAB position
+DKAB_BITS = [0, 1, 1, 0, 1, 0, 0, 1]
 
 
 def _require(ok: bool, what) -> None:
@@ -77,25 +92,80 @@ def si1_l2(rng, fn, delay=0):
     return l2
 
 
-def build_stream(rng, n_frames: int):
-    """One payload stream's 4-sps baseband + its truth {fn: l2}."""
-    from gmr1_tpu_torch.l1 import bcch, ccch
+def _ks(fn: int, nbits: int) -> np.ndarray:
+    """Downlink A5/1 keystream from the a5.c transcription (never from
+    the kernel under test)."""
+    from gmr1_tpu_torch.ops import a5
+    return a5.keystream_np(KC, fn, nbits)[0]
+
+
+def _dkab_signal(p: int, bits) -> np.ndarray:
+    """117-symbol DKAB slot triple at SPS with the pi/4 rotation."""
+    sig = np.zeros(117 * SPS, np.complex64)
+    for tone, base in enumerate((2 + p, 2 + p + 59)):
+        ph = 0.0
+        for s in range(5):
+            if s:
+                ph += np.pi * bits[tone * 4 + (s - 1)]
+            for kk in range(SPS):
+                i = (base + s) * SPS + kk
+                sig[i] += np.exp(1j * (ph + (np.pi / 4) * i / SPS))
+    return sig
+
+
+def _imm_ass_l2(rng, tn: int, p: int) -> np.ndarray:
+    l2 = rng.integers(0, 256, 24, dtype=np.uint8)
+    l2[1], l2[2] = 0x06, 0x3F
+    l2[8] = ((p & 0x3F) << 2) | ((tn >> 3) & 3)
+    l2[9] = (tn & 7) << 5
+    return l2
+
+
+def _ass_cmd_1_l2(rng, tn9: int) -> np.ndarray:
+    l2 = rng.integers(0, 256, 10, dtype=np.uint8)
+    l2[3], l2[4] = 0x06, 0x2E
+    l2[5] = (l2[5] & 0xFC) | ((tn9 >> 3) & 0x03)
+    l2[6] = (l2[6] & 0x1F) | ((tn9 & 0x07) << 5)
+    l2[9] &= 0xF0
+    return l2
+
+
+def build_stream(rng, n_frames: int, story: str | None = None):
+    """One payload stream's 4-sps baseband + its truth.
+
+    Control on every stream: FCCH at k%8==0, SI1 at k%8==2, a CCCH at
+    k%8==3.  `story` adds traffic in the second 8-frame cycle (base 8):
+      "e2e"       IMM.ASS (TN 10, P 9) at k=11, speech at 12-14, FACCH3
+                  ASS.CMD.1 to TN 13 at 16-19, DKABs at 20-21, FACCH9 on
+                  TN 13 at 20, ciphered 9k6 CSD on TN 13 at 21-25, then
+                  silence (TCH3 tears down);
+      "reassign"  IMM.ASS at k=11, ASS.CMD.1 to TN 13 at 12-15 and to
+                  TN 14 at 20-23, CSD trains on TN 13 at 16-20 and on
+                  TN 14 at 24-28."""
+    import torch
+
+    from gmr1_tpu_torch.l1 import bcch, ccch, facch3, facch9, tch3, tch9
     from gmr1_tpu_torch.ops import cplx
     from gmr1_tpu_torch.sdr import bursts as BU
     from gmr1_tpu_torch.sdr import fcch, modem
 
     bb = np.zeros(n_frames * FRAME4, np.complex64)
 
-    def place(k, x1):
+    def at(k, tn):
+        return k * FRAME4 + tn * 39 * SPS
+
+    def place(k, x1, tn=0):
         xc = cplx.to_complex(x1)
         nsym = xc.shape[-1]
         t = np.arange(nsym * SPS)[:, None] / SPS - np.arange(nsym)[None, :]
-        bb[k * FRAME4:k * FRAME4 + nsym * SPS] += xc @ _rc(t).astype(
+        bb[at(k, tn):at(k, tn) + nsym * SPS] += xc @ _rc(t).astype(
             np.float32).T
 
     chirp = cplx.to_complex(fcch._chirp_np(fcch.FCCH, SPS, "dual")) \
         / np.sqrt(2)
-    truth = dict(si1={}, ccch={})
+    truth = dict(si1={}, ccch={}, facch3={}, facch9={}, speech=[], csd=[],
+                 story=story)
+    k_ia = 11 if story else None
     for k in range(n_frames):
         if k % 8 == 0:
             bb[k * FRAME4:k * FRAME4 + len(chirp)] += chirp
@@ -104,10 +174,58 @@ def build_stream(rng, n_frames: int):
             truth["si1"][F0 + k] = bytes(l2)
             place(k, modem.mod(BU.BCCH, bcch.encode(l2)))
         elif k % 8 == 3:
-            l2 = rng.integers(0, 256, 24, dtype=np.uint8)
-            l2[1] = 0x00                        # not an IMM.ASS
+            if k == k_ia:
+                l2 = _imm_ass_l2(rng, TN3, P3)
+            else:
+                l2 = rng.integers(0, 256, 24, dtype=np.uint8)
+                l2[1] = 0x00                    # not an IMM.ASS
             truth["ccch"][F0 + k] = bytes(l2)
             place(k, modem.mod(BU.DC6, ccch.encode(l2)))
+    if story is None:
+        return bb, truth
+
+    def facch3_at(ks, tn9):
+        l2 = _ass_cmd_1_l2(rng, tn9)
+        truth["facch3"][F0 + ks[0]] = bytes(l2)
+        fe = facch3.encode(l2, np.zeros(32, np.uint8)).reshape(4, 104)
+        for bi, k in enumerate(ks):
+            place(k, modem.mod(BU.NT3_FACCH, fe[bi], sync_id=0), TN3)
+
+    def csd_at(ks, tn9):
+        il = tch9.interleaver_init(dtype=torch.uint8)
+        pay = []
+        for k in ks:
+            p = rng.integers(0, 256, 60, dtype=np.uint8)
+            il, eb = tch9.encode(p, tch9.MODE_9K6, np.zeros(10, np.uint8),
+                                 np.zeros(4, np.uint8), il,
+                                 _ks(F0 + k, 658))
+            place(k, modem.mod(BU.NT9, eb, sync_id=1), tn9)
+            pay.append(bytes(p))
+        truth["csd"].append(pay)
+
+    if story == "e2e":
+        for k in (12, 13, 14):
+            f0 = rng.integers(0, 256, 10, dtype=np.uint8)
+            f1 = rng.integers(0, 256, 10, dtype=np.uint8)
+            truth["speech"] += [bytes(f0), bytes(f1)]
+            place(k, modem.mod(BU.NT3_SPEECH, tch3.encode(
+                f0, f1, np.zeros(4, np.uint8))), TN3)
+        facch3_at((16, 17, 18, 19), 13)
+        for k in (20, 21):
+            sig = _dkab_signal(P3, DKAB_BITS)
+            bb[at(k, TN3):at(k, TN3) + len(sig)] += sig
+        l2 = rng.integers(0, 256, 38, dtype=np.uint8)
+        l2[37] &= 0xF0                          # 300 message bits
+        truth["facch9"][F0 + 20] = bytes(l2)
+        place(20, modem.mod(BU.NT9, facch9.encode(
+            l2, np.zeros(10, np.uint8), np.zeros(4, np.uint8),
+            _ks(F0 + 20, 658)), sync_id=0), 13)
+        csd_at(range(21, 26), 13)
+    else:
+        facch3_at((12, 13, 14, 15), 13)
+        facch3_at((20, 21, 22, 23), 14)
+        csd_at(range(16, 21), 13)
+        csd_at(range(24, 29), 14)
     return bb, truth
 
 
@@ -127,8 +245,9 @@ def synthesize(fs: float, content_blocks: int, seed: int = 0xA44):
     span = m // 2 - 12
     arfcns = [CENTER_ARFCN + o for o in range(-span, span)]
     rng = np.random.default_rng(seed)
-    streams, truths = zip(*[build_stream(rng, content_blocks * F)
-                            for _ in range(NS)])
+    stories = ("e2e", "reassign") + (None,) * (NS - 2)
+    streams, truths = zip(*[build_stream(rng, content_blocks * F, st)
+                            for st in stories])
     combs = []
     for s in range(NS):
         spec = np.zeros(m, np.complex128)
@@ -155,33 +274,87 @@ def synthesize(fs: float, content_blocks: int, seed: int = 0xA44):
 
 
 def verify_slice(rx, seeded: dict, truths) -> dict:
-    """Every seeded ARFCN acquired; every decoded BCCH/CCCH L2 of a
-    seeded carrier equals the truth at its fn; >= 3 SI1 (and CCCH)
-    frames per carrier.  Returns counts."""
+    """Check every seeded carrier against its stream's truth:
+      * every decoded BCCH/CCCH L2 equals the truth at its fn, and each
+        carrier has >= 3 SI1 and >= 3 CCCH frames;
+      * FACCH3 and FACCH9: every seeded frame decoded, bit-exact at its
+        fn; a CRC pass at an fn with no seeded frame (noise, p = 2^-16
+        an attempt) is counted and may happen at most 3 times in all;
+      * "e2e" carriers: the first 6 speech frames, exactly two DKABs
+        with the seeded sign pattern, CSD payloads 0-2 in order;
+      * "reassign" carriers: payloads 0-2 of each CSD train in order,
+        train b after train a;
+      * traffic carriers end with TCH3 torn down; control-only carriers
+        carry no TCH frame, speech or CSD.
+    Returns counts."""
     from gmr1_tpu_torch.rx import gsmtap as gt
 
+    f3t = gt.GMR1_TCH3 | gt.GMR1_FACCH
+    f9t = gt.GMR1_TCH9 | gt.GMR1_FACCH
+    dkt = gt.GMR1_TCH3 | gt.GMR1_DKAB
+    by_type = {gt.GMR1_BCCH: "si1", gt.GMR1_CCCH: "ccch", f3t: "facch3",
+               f9t: "facch9"}
     found = {c.arfcn for c in rx.carriers}
     missing = sorted(set(seeded) - found)
     _require(not missing, f"seeded ARFCNs not acquired: {missing[:20]}")
-    n_si1 = n_ccch = 0
+    n = dict(si1=0, ccch=0, facch3=0, facch9=0, speech=0, dkab=0, csd=0,
+             tch9=0, traffic_carriers=0, unseeded_crc_pass=0)
     for car in rx.carriers:
         if car.arfcn not in seeded:
             continue
         tr = truths[seeded[car.arfcn]]
-        got = {gt.GMR1_BCCH: 0, gt.GMR1_CCCH: 0}
+        story = tr["story"]
+        got = dict(si1=0, ccch=0, facch3=0, facch9=0)
+        dk = []
         for t, fn, _tn, l2 in car.frames:
-            want = tr["si1" if t == gt.GMR1_BCCH else "ccch"].get(fn)
+            if t == dkt:
+                dk.append(l2)
+                continue
+            if t == gt.GMR1_TCH9:
+                n["tch9"] += 1
+                continue
+            _require(t in by_type, (car.arfcn, "unexpected type", t, fn))
+            _require(story or t in (gt.GMR1_BCCH, gt.GMR1_CCCH),
+                     (car.arfcn, "TCH frame on a control-only carrier", t))
+            want = tr[by_type[t]].get(fn)
+            if want is None and t in (f3t, f9t):
+                n["unseeded_crc_pass"] += 1
+                continue
             _require(want == l2, (car.arfcn, t, fn, l2.hex(), want))
-            got[t] += 1
-        _require(got[gt.GMR1_BCCH] >= 3 and got[gt.GMR1_CCCH] >= 3,
-                 (car.arfcn, got))
-        n_si1 += got[gt.GMR1_BCCH]
-        n_ccch += got[gt.GMR1_CCCH]
+            got[by_type[t]] += 1
+        _require(got["si1"] >= 3 and got["ccch"] >= 3, (car.arfcn, got))
+        for k in ("facch3", "facch9"):
+            _require(got[k] == len(tr[k]), (car.arfcn, k, got[k], tr[k]))
+            n[k] += got[k]
+        n["si1"] += got["si1"]
+        n["ccch"] += got["ccch"]
+        if not story:
+            _require(not (car.speech or car.csd or dk),
+                     (car.arfcn, "traffic on a control-only carrier"))
+            continue
+        n["traffic_carriers"] += 1
+        if story == "e2e":
+            _require(car.speech[:6] == tr["speech"],
+                     (car.arfcn, "speech", len(car.speech)))
+            _require(len(dk) == 2, (car.arfcn, "DKABs", len(dk)))
+            for d in dk:
+                _require([int(b < 0) for b in np.frombuffer(d, np.int8)]
+                         == DKAB_BITS, (car.arfcn, "DKAB bits", d.hex()))
+            n["speech"] += 6
+            n["dkab"] += 2
+        last = -1
+        for train in tr["csd"]:
+            idx = [car.csd.index(p) for p in train[:3] if p in car.csd]
+            _require(len(idx) == 3 and idx == sorted(idx) and idx[0] > last,
+                     (car.arfcn, "CSD order", idx, last, len(car.csd)))
+            last = idx[-1]
+            n["csd"] += 3
+        _require(not car.cd.tch3.active, (car.arfcn, "TCH3 still active"))
+    _require(n["unseeded_crc_pass"] <= 3, n)
     strays = [c for c in rx.carriers if c.arfcn not in seeded]
-    return dict(carriers=len(rx.carriers), seeded=len(seeded),
+    return dict(n, carriers=len(rx.carriers), seeded=len(seeded),
                 strays=len(strays),
-                stray_frames=sum(len(c.frames) for c in strays),
-                si1=n_si1, ccch=n_ccch)
+                stray_frames=sum(len(c.frames) for c in strays))
 
 
 def _cuda_ms(fn, iters: int) -> float:
@@ -214,27 +387,34 @@ def _trellis_case(code, t_steps: int, b: int, rng, dev):
             code.term == CV.TERM_FLUSH)
 
 
-def phase_viterbi(rng, dev, ccch_batch: int):
-    """Kernel V vs plain on the card; returns (max |err|, ms, plain ms)
-    at the receiver's CCCH batch."""
+def phase_viterbi(rng, dev, n_car: int):
+    """Kernel V vs plain on the card, at B=2048 and at the receiver's
+    batches for n_car carriers; returns (max |err|, ms, plain ms) at the
+    CCCH batch."""
     import torch
 
     from gmr1_tpu_torch.ops import conv as CV
     from gmr1_tpu_torch.ops import viterbi as VT
-    cases = [(CV.K5_12, 212, 2048), (CV.K5_14, 100, 2048),
-             (CV.TCH3_K7, 104, 2048),
+    cases = [(CV.K5_12, 212, 2048, ""), (CV.K5_14, 100, 2048, ""),
+             (CV.TCH3_K7, 104, 2048, ""),
              (CV.ConvCode("k9_13_tb", 9, CV.K9_13.polys,
-                          term=CV.TERM_TAIL_BITING), 208, 2048),
-             (CV.K5_12, 212, ccch_batch)]
-    err, ms, plain_ms = 0.0, None, None
-    for code, t_steps, b in cases:
+                          term=CV.TERM_TAIL_BITING), 208, 2048, ""),
+             (CV.K5_12, 212, 6 * n_car, "CCCH"),
+             # the traffic path, C carriers x F frames
+             (CV.TCH3_K7, 48, 2 * n_car * F, "TCH3 speech"),
+             (CV.K5_12, 320, n_car * F, "FACCH9"),
+             (CV.K5_12, 484, n_car * F, "TCH9 9k6"),
+             (CV.K5_14, 96, n_car, "FACCH3 jobs x 2 ciphers")]
+    err, out = 0.0, None
+    for code, t_steps, b, what in cases:
         sym, sign, flush = _trellis_case(code, t_steps, b, rng, dev)
         kb, km = VT.decode_trellis(sym, sign, flush)
         pb, pm = VT.decode_trellis_plain(sym, sign, flush)
         torch.cuda.synchronize()
         nbad = int((kb != pb).sum())
         merr = float((km - pm).abs().max())
-        print(f"[V] {code.name} B={b} T={t_steps} S={code.num_states}: "
+        print(f"[V] {code.name} B={b} T={t_steps} n={code.n} "
+              f"S={code.num_states}{' (' + what + ')' if what else ''}: "
               f"bit mismatches {nbad}, metric max|err| {merr}")
         _require(nbad == 0 and merr == 0.0, code.name)
         err = max(err, merr)
@@ -242,7 +422,40 @@ def phase_viterbi(rng, dev, ccch_batch: int):
         plain_ms = _cuda_ms(lambda: VT.decode_trellis_plain(sym, sign, flush),
                             3)
         print(f"[V]   kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
-    return err, ms, plain_ms
+        if what == "CCCH":
+            out = (ms, plain_ms)
+    return (err, *out)
+
+
+def phase_a5(rng, dev, batch: int):
+    """Kernel A5 vs its plain version at the receiver's NT9 batch, and vs
+    keystream_np for a handful of frame numbers; returns (mismatched
+    bits, ms, plain ms)."""
+    import torch
+
+    from gmr1_tpu_torch.ops import a5
+    key = rng.integers(0, 256, 8, dtype=np.uint8)
+    fns = rng.integers(0, 1 << 19, batch)
+    fns[:4] = [0, 0x70000, 0x7FFFF, 0x5A5A5]        # bits 16-18 set
+    fns = torch.as_tensor(fns, device=dev)
+    kd, ku = a5.keystream(key, fns, 658)
+    pd, pu = a5.keystream_plain(key, fns, 658)
+    torch.cuda.synchronize()
+    nbad = int((kd != pd).sum()) + int((ku != pu).sum())
+    host = fns.cpu().numpy()
+    kd_h, ku_h = kd.cpu().numpy(), ku.cpu().numpy()
+    for i in (0, 1, 2, 3, batch // 2, batch - 1):
+        rd, ru = a5.keystream_np(key, int(host[i]), 658)
+        nbad += int((kd_h[i] != rd).sum()) + int((ku_h[i] != ru).sum())
+    print(f"[A5] B={batch} nbits=658 (dl + ul): bit mismatches vs plain "
+          f"and vs keystream_np at 6 fns: {nbad}")
+    _require(nbad == 0, "A5 keystream")
+    ms = _cuda_ms(lambda: a5.keystream(key, fns, 658), 20)
+    ms_dl = _cuda_ms(lambda: a5.keystream(key, fns, 658, with_ul=False), 20)
+    plain_ms = _cuda_ms(lambda: a5.keystream_plain(key, fns, 658), 1)
+    print(f"[A5]   kernel {ms:.4f} ms (dl only, as the receiver asks: "
+          f"{ms_dl:.4f} ms), plain {plain_ms:.3f} ms")
+    return float(nbad), ms, plain_ms
 
 
 def phase_pfb(rng, dev):
@@ -288,6 +501,7 @@ def main() -> int:
     try:
         from gmr1_tpu_torch import kernels
         from gmr1_tpu_torch.channelizer.pfb import branch_filter
+        from gmr1_tpu_torch.ops.a5 import keystream
         from gmr1_tpu_torch.ops.viterbi import decode_trellis
         from gmr1_tpu_torch.rx.wideband import WidebandReceiver
     except ImportError as e:
@@ -312,13 +526,14 @@ def main() -> int:
     print(f"[build] {', '.join(f'{k} {v:.1f} s' for k, v in per.items())}"
           f" ({time.perf_counter() - t0:.1f} s) into {kernels.BUILD_DIR}")
 
-    # ---- 3-4. kernels vs their plain versions --------------------------
+    # ---- 3-5. kernels vs their plain versions ------------------------
     rng = np.random.default_rng(0x5EED)
-    span = 1088 // 2 - 12
-    v_err, v_ms, v_plain = phase_viterbi(rng, dev, 6 * 2 * span)
+    n_car = 2 * (1088 // 2 - 12)          # the slice's live carriers
+    v_err, v_ms, v_plain = phase_viterbi(rng, dev, n_car)
     p_err, p_ms, p_plain = phase_pfb(rng, dev)
+    a_err, a_ms, a_plain = phase_a5(rng, dev, n_car * F)
 
-    # ---- 5. the slice ------------------------------------------------
+    # ---- 6. the slice ------------------------------------------------
     t0 = time.perf_counter()
     wb, center, seeded, truths = synthesize(FS, CONTENT_BLOCKS)
     print(f"[slice] synthesized {wb.shape[0] / 1e6:.1f} Msamples "
@@ -327,20 +542,28 @@ def main() -> int:
     rx = WidebandReceiver(wb, FS, center, sps=SPS, device="cuda")
     decode_trellis.launches = 0
     branch_filter.launches = 0
+    keystream.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n_frames = rx.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(viterbi=decode_trellis.launches,
-                    pfb=branch_filter.launches)
+                    pfb=branch_filter.launches, a5=keystream.launches)
     counts = verify_slice(rx, seeded, truths)
     t_acq = rx.prof["acquire"]
     print(f"[slice] carriers found {counts['carriers']} "
           f"(seeded {counts['seeded']}, false-FCCH strays "
           f"{counts['strays']} with {counts['stray_frames']} frames); "
           f"frames decoded {n_frames}: SI1 {counts['si1']}, CCCH "
-          f"{counts['ccch']}, all bit-exact")
+          f"{counts['ccch']}, FACCH3 {counts['facch3']}, FACCH9 "
+          f"{counts['facch9']}, all bit-exact; "
+          f"{counts['traffic_carriers']} traffic carriers: speech "
+          f"{counts['speech']}, DKAB {counts['dkab']}, CSD payloads "
+          f"{counts['csd']} in order, TCH9 frames {counts['tch9']}; "
+          f"CRC passes at unseeded fns {counts['unseeded_crc_pass']}")
+    print("[slice] kernel launches in run(): " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
     print(f"[slice] acquire {t_acq:.2f} s, block loop {wall - t_acq:.2f} s, "
           f"{len(rx.block_walls)} blocks; wideband "
           f"{wb.shape[0] / wall / 1e6:.2f} Msamples/s vs real time "
@@ -360,6 +583,10 @@ def main() -> int:
              replaces="gmr1_tpu/ops/pallas_pfb.py:109",
              launches=launches["pfb"], max_abs_err=p_err, ms=p_ms,
              plain_ms=p_plain),
+        dict(name="a5", route="cuda", source="gmr1_tpu_torch/kernels/a5.cu",
+             replaces="gmr1_tpu/ops/a5.py:148",
+             launches=launches["a5"], max_abs_err=a_err, ms=a_ms,
+             plain_ms=a_plain),
     ]
     print(card)
     print(json.dumps({"kernels": kern}))

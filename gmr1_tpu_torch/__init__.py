@@ -4,16 +4,19 @@ hand-written CUDA kernels for an NVIDIA Hopper card.
 A port of the JAX package `gmr1_tpu`, which stays the reference: the
 subpackages and modules mirror its names, module boundaries keep its
 planar float32 (..., 2) layout, and the tests feed both packages the
-same arrays.  Ported so far is the wideband control-channel receiver
+same arrays.  Ported so far is the wideband receiver
 (`rx.wideband.WidebandReceiver`): PFB channelization, FCCH acquisition,
-BCCH/CCCH demodulation and decoding.
+BCCH/CCCH, and the TCH3 (speech, FACCH3, DKAB) and TCH9 (FACCH9, CSD)
+traffic channels.
 
-  ops/          bit/DSP primitives, conv codes, Viterbi
-  sdr/          burst catalog, pi4-CxPSK modem, FCCH sync
-  l1/           BCCH and CCCH channel coders
+  ops/          bit/DSP primitives, conv codes, Viterbi, interleaving,
+                puncturing, A5/1
+  sdr/          burst catalog, pi4-CxPSK modem, FCCH sync, DKAB
+  l1/           BCCH, CCCH, TCH3, FACCH3, FACCH9 and TCH9 channel coders
   channelizer/  polyphase filterbank channelizer
   rx/           receiver control loop, GSMTap output
-  kernels/      CUDA sources of the Viterbi and PFB kernels, and their build
+  kernels/      CUDA sources of the Viterbi, PFB and A5/1 kernels, and
+                their build
 
 Importing the package loads no kernel: each is built and loaded at its
 first launch on a CUDA tensor.

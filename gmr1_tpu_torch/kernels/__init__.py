@@ -31,10 +31,12 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U64 = ctypes.c_uint64
 # C signature of each library's entry point: (symbol, argtypes)
 _ENTRY = {
     "viterbi": ("gmr1_viterbi_decode", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "pfb": ("gmr1_pfb_branch_filter", (_P, _P, _P, _I, _I, _I, _P)),
+    "a5": ("gmr1_a5_keystream", (_U64, _P, _P, _P, _I, _I, _P)),
 }
 KERNELS = tuple(_ENTRY)
 
@@ -50,24 +52,41 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> Path:
-    """Compile kernels/<name>.cu into the build directory (if its hashed
-    target is missing) and return the shared library's path."""
+def _target(name: str) -> tuple[Path, Path]:
+    """(source, hashed shared-library path) of kernels/<name>.cu."""
     src = SRC_DIR / f"{name}.cu"
     digest = hashlib.sha1(src.read_bytes()
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"{name}-{digest}.so"
+    return src, BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc on kernels/<name>.cu unless its hashed target exists;
+    returns (target, process or None)."""
+    src, out = _target(name)
     if out.is_file():
-        return out
+        return out, None
     cmd = [_nvcc(), *NVCC_FLAGS]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd += ["-o", str(tmp), str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{res.stderr}")
-    os.replace(tmp, out)
+    return out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def _finish(name: str, out: Path, proc) -> Path:
+    if proc is not None:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n{err}")
+        os.replace(out.with_suffix(f".{os.getpid()}.tmp"), out)
     return out
+
+
+def build(name: str) -> Path:
+    """Compile kernels/<name>.cu into the build directory (if its hashed
+    target is missing) and return the shared library's path."""
+    return _finish(name, *_start(name))
 
 
 @functools.cache
@@ -83,12 +102,21 @@ def library(name: str):
 
 
 def build_all() -> dict[str, float]:
-    """Build and load every kernel; returns seconds spent per kernel."""
+    """Build every kernel, one nvcc per source all started together, and
+    load each; returns the seconds from the start to each one's load."""
+    t0 = time.perf_counter()
+    started = {name: _start(name) for name in KERNELS}
     out = {}
-    for name in KERNELS:
-        t0 = time.perf_counter()
-        library(name)
-        out[name] = time.perf_counter() - t0
+    try:
+        for name, (path, proc) in started.items():
+            _finish(name, path, proc)
+            library(name)
+            out[name] = time.perf_counter() - t0
+    finally:                 # a failed build leaves no compiler running
+        for _, proc in started.values():
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return out
 
 

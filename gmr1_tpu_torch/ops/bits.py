@@ -40,3 +40,8 @@ def pack_bits(bits, nbytes: int | None = None):
     bits = bits.reshape(*bits.shape[:-1], nb, 8).to(torch.int32)
     sh = torch.as_tensor(_SHIFTS.astype(np.int32), device=bits.device)
     return torch.sum(bits << sh, dim=-1).to(torch.uint8)
+
+
+def like(x, ref: torch.Tensor) -> torch.Tensor:
+    """An array-like as a tensor of ref's dtype on ref's device."""
+    return torch.as_tensor(x).to(device=ref.device, dtype=ref.dtype)

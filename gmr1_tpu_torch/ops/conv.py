@@ -20,6 +20,10 @@ from functools import cached_property, lru_cache
 import numpy as np
 import torch
 
+# full float32 matmuls, as everywhere in the port (TF32 rounds the
+# operands to 10 mantissa bits)
+torch.backends.cuda.matmul.allow_tf32 = False
+
 TERM_FLUSH = "flush"
 TERM_TAIL_BITING = "tail_biting"
 

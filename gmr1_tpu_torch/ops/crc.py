@@ -15,6 +15,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+# full float32 matmuls, as everywhere in the port (TF32 rounds the
+# operands to 10 mantissa bits)
+torch.backends.cuda.matmul.allow_tf32 = False
+
 
 @dataclass(frozen=True)
 class CrcCode:

@@ -25,6 +25,10 @@ import torch
 from .. import kernels
 from .conv import TERM_FLUSH, ConvCode, encode
 
+# full float32 matmuls, as everywhere in the port (TF32 rounds the
+# operands to 10 mantissa bits)
+torch.backends.cuda.matmul.allow_tf32 = False
+
 NEG_INF = -1e30
 
 

@@ -78,3 +78,11 @@ def ccch_imm_ass_parse(l2) -> tuple[int, int]:   # gmr1_rx.c:241-246
     p = (int(l2[8]) & 0xFC) >> 2
     tn = ((int(l2[8]) & 0x03) << 3) | (int(l2[9]) >> 5)
     return tn, p
+
+
+def facch3_is_ass_cmd_1(l2) -> bool:      # gmr1_rx.c:248-252
+    return l2[3] == 0x06 and l2[4] == 0x2E
+
+
+def facch3_ass_cmd_1_parse(l2) -> int:    # gmr1_rx.c:254-258
+    return ((int(l2[5]) & 0x03) << 3) | (int(l2[6]) >> 5)

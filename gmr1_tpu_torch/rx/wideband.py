@@ -1,9 +1,10 @@
-"""Block-streamed wideband control-channel receiver.
+"""Block-streamed wideband receiver.
 
 Counterpart of gmr1_tpu/rx/wideband.py `WidebandReceiver` in its
 single-device form (`mesh=None`, one FCCH beam per carrier, narrow
 carriers, float32 ingest): one wideband capture in, every carrier's
-BCCH and CCCH L2 frames out.
+BCCH, CCCH, TCH3 (speech, FACCH3, DKAB) and TCH9 (FACCH9, 9k6 CSD)
+frames out.
 
   acquisition  the capture prefix streams through the ingest step twice:
                pass 1 accumulates the FCCH dual-chirp correlation power
@@ -14,18 +15,27 @@ BCCH and CCCH L2 frames out.
                halo -> per-carrier RRC resample by ONE per-frame window
                matrix with the carried bank history -> rolling stream
                buffer of (F+1) frames of tail + F new frames per carrier.
-  control      BCCH + CCCH windows gathered from the device-resident
-  phase        streams, demodulated and decoded for every carrier in one
-               batch (`_ctrl_core`); a few result tensors come back.
-  host walk    the per-carrier control FSM (gmr1_rx.c:746-850): SI1
-               frame-number / slot realign, closed-loop time and
-               frequency corrections applied at the next block boundary,
-               CCCH energy gate, IMM.ASS channel state, GSMTap output.
+  block phase  `_phase_block`, computed speculatively for every carrier
+               from the pre-block channel state: BCCH + CCCH demod and
+               decode; the TCH3 slot path (energy, DKAB, burst type,
+               FACCH3 demod, speech decode under the A5/1 keystream);
+               NT9 demod and FACCH9 decode; the chained TCH9 9k6 decode
+               over the device-resident deinterleaver rings (one row per
+               carrier slot).  Only the small decoded results come back;
+               soft bits stay on the device.
+  host walks   the per-carrier FSMs (gmr1_rx.c:356-850) select from the
+               fetched results: SI1 frame-number / slot realign,
+               closed-loop time and frequency corrections applied at the
+               next block boundary, CCCH energy gate, IMM.ASS, the TCH3
+               energy/DKAB/teardown walk, FACCH3 4-burst groups (soft
+               bits gathered only for the bursts found) with the cipher
+               retry, ASS.CMD.1 -> TCH9, FACCH9 and CSD emission.  Rare
+               mid-block events (activation, realign, reassignment) re-run
+               a small phase for just those carriers (`_phase_tch3s`,
+               `_phase_tch9s`, `_chain_fix`).
 
-The traffic channels (TCH3/TCH9, FACCH, DKAB) and the other JAX-side
-options (`mesh`, `beams > 1`, `wide_channels`, int16 ingest) are not
-ported yet: an IMM.ASS sets the carrier's TCH3 state exactly as the JAX
-receiver does, but no traffic phase runs.
+The other JAX-side options (`mesh`, `beams > 1`, `wide_channels`, int16
+ingest) are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,15 +48,18 @@ import torch
 
 from ..channelizer.arfcn import _BASES, BASE_BANDWIDTH
 from ..channelizer.pfb import Channelizer
-from ..l1 import bcch, ccch
+from ..l1 import bcch, ccch, facch3, facch9, tch3, tch9
+from ..ops import a5 as a5op
 from ..ops import cplx
+from ..ops.interleave import InterleaverState
 from ..sdr import bursts as BU
-from ..sdr import fcch, modem
+from ..sdr import dkab, fcch, modem
 from ..sdr.defs import SYM_RATE
 from . import gsmtap
 from .cfile import ArraySource, SampleSource
 from .receiver import (ChanDesc, bcch_tdma_align, ccch_imm_ass_parse,
-                       ccch_is_imm_ass)
+                       ccch_is_imm_ass, facch3_ass_cmd_1_parse,
+                       facch3_is_ass_cmd_1)
 
 torch.backends.cuda.matmul.allow_tf32 = False   # the RRC window matmul is f32
 
@@ -105,6 +118,135 @@ def _ctrl_core(streams, rows, fs, idx_b, idx_c, sps: int):
                 eb=_energy(wb), l2c=l2c, badc=badc, ec=_energy(wc))
 
 
+def _bt_from_demods(rf, rs, e_toa: float):
+    """Burst-type classification from the two demod results: the peak
+    powers and e_toa-distance gate of modem.detect (pi4cxpsk.c:657-659),
+    without redoing the sync correlations.  0 = FACCH, 1 = speech."""
+    def score(r):
+        return r.pwr / torch.clamp(torch.abs(e_toa - r.toa), min=1e-6)
+    return torch.argmax(torch.stack([score(rf), score(rs)], dim=-1), dim=-1)
+
+
+def _keystreams(key, fn0, f_cnt: int, nbits: int):
+    """Downlink A5/1 streams (C, F, nbits) of frames fn0 + [0, F)."""
+    fns = fn0[:, None] + torch.arange(f_cnt, device=fn0.device)
+    return a5op.keystream(key, fns, nbits, with_ul=False)[0]
+
+
+def _tch3_core(streams, rows, fs, fn0, p, flags, idx_t, key, sps: int,
+               ks208=None):
+    """Full TCH3 slot path (gmr1_rx.c:531-600 restructured): energy,
+    DKAB, burst-type detect, FACCH demod and a speculative speech decode
+    under the A5/1 keystream, gated by the carrier's learned cipher flag
+    (flags bit 1).  `ks208` shares the NT9 keystream's prefix: A5 is a
+    stream cipher, so the 208-bit stream of (key, fn) IS the first 208
+    bits of the 658-bit one.  Returns (small results, FACCH soft bits
+    (C, F, 104), which stay on the device)."""
+    w = sps + sps // 2
+    wt = _windows_rows(streams, rows, idx_t, BU.NT3_FACCH.len_syms * sps + w)
+    rd = dkab.demod(wt, sps, p[:, None], fs)
+    rf = modem.demod(BU.NT3_FACCH, wt, sps=sps, win=w, freq_shift=fs)
+    rs = modem.demod(BU.NT3_SPEECH, wt, sps=sps, win=w, freq_shift=fs)
+    bt = _bt_from_demods(rf, rs, float(w >> 1))
+    if ks208 is None:
+        ks208 = _keystreams(key, fn0, idx_t.shape[1], 208)
+    ciph = ks208 * ((flags >> 1) & 1)[:, None, None].to(ks208.dtype)
+    f0, f1, _s, _m = tch3.decode(rs.ebits, ciph)
+    small = dict(et=_energy(wt), dk_bits=rd.ebits, dk_found=rd.found,
+                 bt=bt.to(torch.int8), f_sid=rf.sync_id.to(torch.int8),
+                 s_f0=f0, s_f1=f1)
+    return small, rf.ebits
+
+
+def _tch9_core(streams, rows, fs, fn0, idx_9, key, sps: int):
+    """NT9 windows: demod + speculative FACCH9 decode for every
+    (carrier, frame) (gmr1_rx.c:276-353).  The A5/1 keystream (the
+    reference hardcodes A5/1 for NT9, gmr1_rx.c:310,326) is computed
+    once and shared with the CSD chain and the TCH3 path.  Returns
+    (small results, NT9 soft bits (C, F, 662), keystreams (C, F, 658))."""
+    w = sps + sps // 2
+    wt = _windows_rows(streams, rows, idx_9, BU.NT9.len_syms * sps + w)
+    r = modem.demod(BU.NT9, wt, sps=sps, win=w, freq_shift=fs)
+    ks = _keystreams(key, fn0, idx_9.shape[1], 658)
+    l2f9, _sa, _st, badf9, _m = facch9.decode(r.ebits, ks)
+    small = dict(sid9=r.sync_id.to(torch.int8), l2f9=l2f9, badf9=badf9)
+    return small, r.ebits, ks
+
+
+def _chain_core(e9, ks, il, sid, flags):
+    """Chained 9k6 CSD decode over the depth-3 rings: valid = (sync_id
+    == 1) & started & tch9-active, so the chain runs with the block
+    phase (identical to the sequential per-burst walk, gmr1_rx.c:321-347
+    / tch9.c:109).  Returns (updated rings, l2 (F, C, 60))."""
+    f_cnt = e9.shape[1]
+    shifts = 16 + torch.arange(f_cnt, device=flags.device)
+    started = (flags[:, None] >> shifts) & 1
+    act9 = (flags & 1)[:, None]
+    valid = (sid == 1) & ((started & act9) != 0)
+    il2, l2a, _sa, _st, _m = tch9.decode_frames(
+        e9.transpose(0, 1), tch9.MODE_9K6, il, ks.transpose(0, 1),
+        valid.transpose(0, 1))
+    return il2, l2a
+
+
+def _phase_block(streams, m: dict, il, key, sps: int):
+    """The whole block for every carrier slot (see the module doc).
+    `m` is the block meta on the device.  Returns (small, big): `small`
+    is fetched to the host; `big` (FACCH soft bits, NT9 soft bits and
+    keystreams, the updated rings) stays on the device for the rare
+    correction phases."""
+    rows, fs, fn0, flags = m["rows"], -m["freq"][:, None], m["fn0"], \
+        m["flags"]
+    small = _ctrl_core(streams, rows, fs, m["idx_b"], m["idx_c"], sps)
+    s9, e9, ks = _tch9_core(streams, rows, fs, fn0, m["idx_9"], key, sps)
+    s3, f_ebits = _tch3_core(streams, rows, fs, fn0, m["p"], flags,
+                             m["idx_t"], key, sps, ks208=ks[..., :208])
+    small.update(s3)
+    small.update(s9)
+    il2, small["l2a"] = _chain_core(e9, ks, il, s9["sid9"], flags)
+    big = dict(f_ebits=f_ebits, e9=e9, ks=ks, il2=il2)
+    return small, big
+
+
+def _phase_tch3s(streams, m: dict, key, sps: int):
+    """Supplemental TCH3 slot path for a carrier subset (same-block
+    activations, realigned carriers whose block-phase windows went
+    stale)."""
+    return _tch3_core(streams, m["rows"], -m["freq"][:, None], m["fn0"],
+                      m["p"], m["flags"], m["idx"], key, sps)
+
+
+def _phase_tch9s(streams, m: dict, key, sps: int):
+    """Supplemental NT9 demod + FACCH9 for a carrier subset."""
+    return _tch9_core(streams, m["rows"], -m["freq"][:, None], m["fn0"],
+                      m["idx"], key, sps)
+
+
+def _chain_fix(il_prev, il2, fix, e9, ks):
+    """Correct the chained CSD decode for a carrier subset: re-run the
+    chain from the PRE-block ring rows (il_prev) with the corrected
+    validity (host-computed after the FSM walks) and write the results
+    into the block phase's post-block rings (il2).  `fix` is (Cs, 3)
+    int64 [slot | reset | valid bits]; e9/ks are the subset's soft bits
+    and keystreams.  The port pads no batch, so the slots are unique and
+    scatter with index_copy_, in place: il2 is the block phase's fresh
+    ring, held by nothing else."""
+    slots, reset, vbits = fix[:, 0], fix[:, 1], fix[:, 2]
+    f_cnt = e9.shape[1]
+    valid = ((vbits[:, None] >> torch.arange(f_cnt, device=fix.device))
+             & 1) != 0
+    keep = 1 - reset
+    sub = InterleaverState(
+        buf=il_prev.buf[slots] * keep[:, None, None].to(il_prev.buf.dtype),
+        n=il_prev.n[slots] * keep)
+    sub2, l2a, _sa, _st, _m = tch9.decode_frames(
+        e9.transpose(0, 1), tch9.MODE_9K6, sub, ks.transpose(0, 1),
+        valid.transpose(0, 1))
+    il2.buf.index_copy_(0, slots, sub2.buf)
+    il2.n.index_copy_(0, slots, sub2.n)
+    return il2, l2a
+
+
 @dataclass
 class _Carrier:
     col: int                 # channel-bank column
@@ -112,13 +254,14 @@ class _Carrier:
     cd: ChanDesc
     snr: float
     frames: list = field(default_factory=list)   # (type, fn, tn, bytes)
+    speech: list = field(default_factory=list)   # decoded TCH3 frames
+    csd: list = field(default_factory=list)      # decoded TCH9 CSD blocks
     bcch_energy: float = float("nan")
     done: bool = False
 
 
 class WidebandReceiver:
-    """Decode the control channels of every carrier of a wideband capture
-    (see the module doc).
+    """Decode every carrier of a wideband capture (see the module doc).
 
     `wb` is planar float32 (N, 2), complex64 (N,) host samples or a
     `cfile.SampleSource`.  `device` is where the streams live and every
@@ -172,6 +315,10 @@ class WidebandReceiver:
         self.arfcn_filter = arfcns
         self.carriers: list[_Carrier] = []
         self.frames: list[tuple[int, int, int, int, bytes]] = []
+        # device-resident TCH9 deinterleaver rings, one row per carrier
+        # slot (created at the first block, advanced by the block phase)
+        self._il: InterleaverState | None = None
+        self._a5_seen: dict[tuple[int, int], np.ndarray] = {}
         # wall-clock per pipeline section, accumulated across run()
         self.prof: dict[str, float] = {}
         self._build_ingest()
@@ -461,11 +608,17 @@ class WidebandReceiver:
         return 64 <= a <= self.T_buf - (self.block_frames + 2) \
             * self.frame_out
 
-    def _build_meta(self, cars, f_cnt: int) -> dict:
-        """Per-block control schedule of `cars` as whole-array numpy:
+    def _build_meta(self, active_ids, F: int) -> dict:
+        """Per-block schedule of EVERY carrier slot as whole-array numpy
+        (row i = self.carriers[i], so each carrier keeps its TCH9 ring
+        row from block to block; `act` marks the active ones).  Control:
         BCCH on sirfn%8==2, CCCH on sirfn%8 not in {0, 2}
-        (gmr1_rx.c:867,800) — 1 BCCH + 6 CCCH windows per carrier per
-        8-frame block — and each window's start in the stream buffer."""
+        (gmr1_rx.c:867,800), 1 BCCH + 6 CCCH windows per carrier per
+        8-frame block; TCH3 windows at tch3.tn and NT9 windows at
+        tch9.tn on every frame.  `flags`: bit 0 tch9-active (and
+        active), bit 1 the TCH3 cipher flag, bits 16..16+F the frames
+        at or after tch9.from_fn (gmr1_rx.c:437-441)."""
+        cars = self.carriers
         sps, buf0, fo = self.sps, self._buf0, self.frame_out
         n = len(cars)
 
@@ -476,7 +629,13 @@ class WidebandReceiver:
         fn0 = vec(lambda c: c.cd.fn, np.int64)
         delay = vec(lambda c: c.cd.sa_sirfn_delay, np.int64)
         stn = vec(lambda c: c.cd.sa_bcch_stn, np.int64)
-        fns = fn0[:, None] + np.arange(f_cnt)
+        tn3 = vec(lambda c: c.cd.tch3.tn, np.int64)
+        ci3 = vec(lambda c: c.cd.tch3.ciph, np.int64)
+        tn9 = vec(lambda c: c.cd.tch9.tn, np.int64)
+        a9 = vec(lambda c: c.cd.tch9.active, bool)
+        ff9 = vec(lambda c: c.cd.tch9.from_fn, np.int64)
+        act = vec(lambda c: id(c) in active_ids, bool)
+        fns = fn0[:, None] + np.arange(F)
         r8 = ((fns - delay[:, None]) & 63) % 8
         is_b = r8 == 2
         is_c = (r8 != 0) & (r8 != 2)
@@ -487,29 +646,92 @@ class WidebandReceiver:
         fr_b = np.argsort(~is_b, axis=1, kind="stable")[:, :nb]
         fr_c = np.argsort(~is_c, axis=1, kind="stable")[:, :nc]
 
-        def idx(frames, win, wlen):
-            out = (align[:, None] - buf0 + sps * 39 * stn[:, None]
+        def idx(tn, frames, win, wlen):
+            out = (align[:, None] - buf0 + sps * 39 * tn[:, None]
                    - (win >> 1) + frames * fo)
             return np.clip(out, 0, self.T_buf - wlen - 1)
 
+        w = sps + sps // 2
+        fa = np.arange(F)[None, :]
+        started = fns >= ff9[:, None]
+        sbits = (started.astype(np.int64) << (16 + np.arange(F))).sum(1)
         return dict(
-            col=vec(lambda c: c.col, np.int64),
+            rows=vec(lambda c: c.col, np.int64),
             freq=vec(lambda c: c.cd.freq_err, np.float32),
-            idx_b=idx(fr_b, 20 * sps, BU.BCCH.len_syms * sps + 20 * sps),
-            idx_c=idx(fr_c, 10 * sps, BU.DC6.len_syms * sps + 10 * sps),
-            is_b=is_b, is_c=is_c,
-            jb=np.cumsum(is_b, 1) - 1, jc=np.cumsum(is_c, 1) - 1)
+            fn0=fn0, p=vec(lambda c: c.cd.tch3.p, np.int64),
+            flags=(a9 & act).astype(np.int64) | ((ci3 & 1) << 1) | sbits,
+            idx_b=idx(stn, fr_b, 20 * sps, BU.BCCH.len_syms * sps + 20 * sps),
+            idx_c=idx(stn, fr_c, 10 * sps, BU.DC6.len_syms * sps + 10 * sps),
+            idx_t=idx(tn3, fa, w, BU.NT3_FACCH.len_syms * sps + w),
+            idx_9=idx(tn9, fa, w, BU.NT9.len_syms * sps + w),
+            fns=fns, is_b=is_b, is_c=is_c, jb=np.cumsum(is_b, 1) - 1,
+            jc=np.cumsum(is_c, 1) - 1, a9=a9, act=act, started=started)
+
+    def _build_sub_meta(self, cars, kind: str, F: int) -> dict:
+        """Meta of a supplemental subset phase: `idx` is the one slot
+        (tch3.tn or tch9.tn) the phase demodulates."""
+        sps, buf0, fo = self.sps, self._buf0, self.frame_out
+        w = sps + sps // 2
+        wlen = (BU.NT3_FACCH if kind == "tch3" else BU.NT9).len_syms \
+            * sps + w
+        tn = np.asarray([c.cd.tch3.tn if kind == "tch3" else c.cd.tch9.tn
+                         for c in cars], np.int64)
+        align = np.asarray([c.cd.align for c in cars], np.int64)
+        base = align - buf0 + sps * 39 * tn - (w >> 1)
+        return dict(
+            rows=np.asarray([c.col for c in cars], np.int64),
+            freq=np.asarray([c.cd.freq_err for c in cars], np.float32),
+            fn0=np.asarray([c.cd.fn for c in cars], np.int64),
+            p=np.asarray([c.cd.tch3.p for c in cars], np.int64),
+            flags=np.asarray([(c.cd.tch3.ciph & 1) << 1 for c in cars],
+                             np.int64),
+            idx=np.clip(base[:, None] + np.arange(F) * fo, 0,
+                        self.T_buf - wlen - 1))
+
+    _DEV_META = ("rows", "freq", "fn0", "p", "flags", "idx_b", "idx_c",
+                 "idx_t", "idx_9", "idx")
+
+    def _meta_dev(self, m: dict) -> dict:
+        """The device half of a meta dict."""
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in m.items() if k in self._DEV_META}
+
+    def _a5(self, fn: int, nbits: int) -> np.ndarray:
+        """Host downlink keystream of one frame (the FACCH3 flushes).
+        Every carrier shares the key, so carriers in step share their
+        frames' streams: they are kept by (fn, nbits)."""
+        ks = self._a5_seen.get((fn, nbits))
+        if ks is None:
+            if len(self._a5_seen) >= 4096:
+                self._a5_seen.clear()
+            ks = self._a5_seen[fn, nbits] = a5op.keystream_np(
+                self.kc, fn, nbits)[0]
+        return ks
 
     def _process_block(self, active: list[_Carrier], prefetch) -> None:
         t = time.perf_counter()
         sps, F, dev = self.sps, self.block_frames, self.device
         frame_len = self.frame_out
-        mb = self._build_meta(active, F)
-        fs = -torch.as_tensor(mb["freq"], device=dev)[:, None]
-        res = _ctrl_core(self.streams, torch.as_tensor(mb["col"], device=dev),
-                         fs, torch.as_tensor(mb["idx_b"], device=dev),
-                         torch.as_tensor(mb["idx_c"], device=dev), sps)
-        handle = self._fetch_start(res)
+        cars = self.carriers
+        slot = {id(c): i for i, c in enumerate(cars)}
+        active_ids = {id(c) for c in active}
+
+        # ---- one phase on PRE-block state -------------------------------
+        # everything depends only on block-boundary channel state, so the
+        # whole block (control + TCH3 + NT9 + CSD chain over the rings)
+        # runs before any fetch; rare same-block activations / realigns
+        # re-run a small correction phase for just those carriers
+        mb = self._build_meta(active_ids, F)
+        n = len(cars)
+        if self._il is None or self._il.buf.shape[0] != n:
+            self._il = InterleaverState(
+                buf=torch.zeros((n, tch9.INTER_DEPTH, tch9.INTER_WIDTH),
+                                device=dev),
+                n=torch.zeros((n,), dtype=torch.int64, device=dev))
+        il_prev = self._il
+        small, big = _phase_block(self.streams, self._meta_dev(mb), il_prev,
+                                  self.kc, sps)
+        handle = self._fetch_start(small)
         t = self._tick("phase", t)
         # the next block's ingest is queued behind this block's phase:
         # its host read and upload overlap the phase on the device
@@ -518,10 +740,15 @@ class WidebandReceiver:
         res = self._fetch_wait(handle)
         t = self._tick("fetch", t)
 
-        # ---- host FSM: BCCH / CCCH (gmr1_rx.c:746-850) -------------------
+        # ---- host FSM pass 1: BCCH/CCCH + TCH3 activation ----------------
+        pre3 = {id(c): (c.cd.tch3.active, c.cd.align) for c in active}
+        pre9 = {id(c): (c.cd.tch9.active, c.cd.align, c.cd.fn,
+                        c.cd.tch9.tn) for c in active}
+        tch3_new: list[_Carrier] = []
+        tch3_from: dict[int, int] = {}       # carrier -> first active f
         is_b, is_c, jb, jc = mb["is_b"], mb["is_c"], mb["jb"], mb["jc"]
-        pending = []
-        for i, car in enumerate(active):
+        for car in active:
+            i = slot[id(car)]
             cd = car.cd
             d_align, d_freq = 0, 0.0
             for f in range(F):
@@ -536,7 +763,8 @@ class WidebandReceiver:
                         d_align = int(round(float(res["toab"][i, j]))) \
                             - (20 * sps >> 1)
                         d_freq = float(res["ferrb"][i, j])
-                        # SI1 realign sets cd.fn to THIS frame's true fn;
+                        # SI1 realign sets cd.fn to THIS frame's true fn
+                        # (and shifts cd.align for a BCCH slot change);
                         # rebase it to the block start (sirfn%8 is
                         # preserved, so the block schedule stays valid)
                         bcch_tdma_align(cd, l2, sps)
@@ -560,18 +788,101 @@ class WidebandReceiver:
                             st3.ciph = 0
                             st3.sync_id = 0
                             st3.ebits[:] = 0
+                            if not any(c is car for c in tch3_new):
+                                tch3_new.append(car)
+                            tch3_from[id(car)] = f + 1
                             self._log(f"[+] ARFCN {car.arfcn} TCH3 on "
                                       f"TN {st3.tn}")
                         self._emit(car, gsmtap.GMR1_CCCH, fn,
                                    cd.sa_bcch_stn, l2)
-            pending.append((d_align, d_freq))
+            cd._pending = (d_align, d_freq)   # applied after the walks
+        t = self._tick("walk", t)
 
-        # ---- advance block ----------------------------------------------
+        # ---- TCH3 walk over the speculative block-phase results ---------
+        new_ids = {id(c) for c in tch3_new}
+        fev: list = []
+        # carriers (re)assigned or realigned in pass 1 have stale
+        # block-phase windows: walk the supplemental phase instead
+        cars3 = [c for c in active if pre3[id(c)][0]
+                 and id(c) not in new_ids
+                 and c.cd.align == pre3[id(c)][1]]
+        if cars3:
+            rows3 = np.fromiter((slot[id(c)] for c in cars3), np.int64,
+                                len(cars3))
+            fev += self._walk_tch3_vec(cars3, rows3, res, {}, F,
+                                       big["f_ebits"])
+        supp = tch3_new + [
+            c for c in active
+            if pre3[id(c)][0] and id(c) not in new_ids
+            and c.cd.align != pre3[id(c)][1] and c.cd.tch3.active]
+        if supp:
+            s3, feb_s = _phase_tch3s(
+                self.streams,
+                self._meta_dev(self._build_sub_meta(supp, "tch3", F)),
+                self.kc, sps)
+            res_s = self._fetch_wait(self._fetch_start(s3))
+            fev += self._walk_tch3_vec(supp, np.arange(len(supp)), res_s,
+                                       tch3_from, F, feb_s)
+        jobs = self._facch_collect(fev)
+        t = self._tick("walk_tch3", t)
+
+        self._t9_assigned: set[int] = set()
+        if jobs:
+            self._walk_facch(jobs, *self._decode_facch(jobs))
+        t = self._tick("facch", t)
+
+        # ---- TCH9 emission + corrections ---------------------------------
+        # the chain already ran in the block phase from pre-block state;
+        # only carriers whose state changed during the walks (activation
+        # with an in-block start, reassignment, SI1 realign) re-run their
+        # ring rows from the pre-block rings with corrected windows and
+        # validity.  `fix_bound` caps the block phase's emissions: the
+        # chain is causal, so for a mid-block reassignment the frames
+        # BEFORE the handover decoded right on the old slot and are
+        # still emitted (as the reference's sequential walk does,
+        # gmr1_rx.c:276-353)
+        fix9: list[_Carrier] = []
+        resets: list[int] = []
+        fix_bound: dict[int, int] = {}
+        for c in active:
+            a0, al0, f0_, tn0 = pre9[id(c)]
+            st9 = c.cd.tch9
+            if not st9.active:
+                continue
+            assigned = id(c) in self._t9_assigned
+            if not a0:
+                if st9.from_fn <= c.cd.fn + F - 1:
+                    fix9.append(c)
+                    resets.append(1)     # fresh assignment: zero ring
+                    fix_bound[id(c)] = -1 << 62   # nothing from main
+            elif assigned and (c.cd.align, c.cd.fn) == (al0, f0_):
+                # reassignment re-inits the ring (rx_tch9_init); the
+                # block phase's results stay valid up to the handover
+                fix9.append(c)
+                resets.append(1)
+                fix_bound[id(c)] = st9.from_fn
+            elif assigned or (c.cd.align, c.cd.fn, st9.tn) \
+                    != (al0, f0_, tn0):
+                # realigned mid-block: the old windows are suspect for
+                # the whole block, so re-run it all
+                fix9.append(c)
+                resets.append(1 if assigned else 0)
+                fix_bound[id(c)] = -1 << 62
+        self._tch9_emit_main(active, slot, mb, res, fix_bound, pre9)
+        if fix9:
+            self._tch9_fix(fix9, resets, slot, il_prev, big["il2"], F)
+        else:
+            self._il = big["il2"]
+        t = self._tick("tch9", t)
+
+        # ---- advance block -----------------------------------------------
         # one frame of slot offset + the largest burst window fits in two
         # extra frame lengths: stop when the NEXT block would need samples
         # past the capture end (gmr1_rx.c:893-894)
-        for car, (d_align, d_freq) in zip(active, pending):
+        for car in active:
             cd = car.cd
+            d_align, d_freq = cd._pending
+            del cd._pending
             cd.align += F * frame_len + d_align
             cd.freq_err += d_freq
             cd.fn += F
@@ -579,6 +890,235 @@ class WidebandReceiver:
                and cd.align + (F + 2) * frame_len > self.n_stream:
                 car.done = True
         self._tick("walk", t)
+
+    # --- TCH3 host FSM (gmr1_rx.c:356-600 over batched results) ---------
+
+    def _walk_tch3_vec(self, tch3_set, rows, res, tch3_from, F, f_ebits):
+        """TCH3 FSM walk: the energy gates, DKAB/weak counting and EMA
+        trackers (gmr1_rx.c:531-600) as whole-array numpy per frame,
+        per-carrier Python only on events.  Speech is already decoded;
+        this walk selects it.  FACCH bursts come back as events for the
+        deferred soft-bit gather (_facch_collect) from `f_ebits`, the
+        device-resident (C', F, 104) tensor; `rows` maps a tch3_set
+        position to its result row."""
+        n = len(tch3_set)
+        rows = np.asarray(rows)
+        act = np.fromiter((c.cd.tch3.active for c in tch3_set), bool, n)
+        ebv = np.fromiter((c.cd.tch3.energy_burst for c in tch3_set),
+                          np.float64, n)
+        edv = np.fromiter((c.cd.tch3.energy_dkab for c in tch3_set),
+                          np.float64, n)
+        wk = np.fromiter((c.cd.tch3.weak_cnt for c in tch3_set),
+                         np.int64, n)
+        fn0 = np.fromiter((c.cd.fn for c in tch3_set), np.int64, n)
+        f0v = np.fromiter((tch3_from.get(id(c), 0) for c in tch3_set),
+                          np.int64, n)
+        et = res["et"][rows].astype(np.float64)
+        dkf = res["dk_found"][rows]
+        bt = res["bt"][rows]
+        sidv = res["f_sid"][rows]
+        speech_ok = np.zeros((n, F), bool)
+        fev = [[] for _ in range(n)]
+        for f in range(F):
+            a = act & (f >= f0v)
+            if not a.any():
+                continue
+            be = et[:, f]
+            weak = a & (be < (edv + ebv) / 4.0)
+            dk = weak & dkf[:, f]
+            nodk = weak & ~dkf[:, f]
+            wk[nodk] += 1
+            tear = nodk & (wk > 8)
+            act[tear] = False
+            edv[dk] = 0.1 * be[dk] + 0.9 * edv[dk]
+            strong = a & ~weak
+            wk[strong] = 0
+            ebv[strong] = 0.1 * be[strong] + 0.9 * ebv[strong]
+            isfa = strong & (bt[:, f] == 0)
+            issp = strong & (bt[:, f] != 0)
+            speech_ok[issp, f] = True
+            for i in np.flatnonzero(dk):
+                self._emit(tch3_set[i], gsmtap.GMR1_TCH3 | gsmtap.GMR1_DKAB,
+                           int(fn0[i]) + f, tch3_set[i].cd.tch3.tn,
+                           res["dk_bits"][rows[i], f].view(np.uint8))
+            for i in np.flatnonzero(tear):
+                self._log(f"[-] ARFCN {tch3_set[i].arfcn} TCH3 END "
+                          f"@{int(fn0[i]) + f}")
+            for i in np.flatnonzero(isfa):
+                fev[i].append((f, int(fn0[i]) + f, int(sidv[i, f])))
+        for i, c in enumerate(tch3_set):
+            st = c.cd.tch3
+            st.active = bool(act[i])
+            st.energy_burst = float(ebv[i])
+            st.energy_dkab = float(edv[i])
+            st.weak_cnt = int(wk[i])
+        for i, f in zip(*np.nonzero(speech_ok)):
+            r = rows[i]
+            tch3_set[i].speech.append(res["s_f0"][r, f].tobytes())
+            tch3_set[i].speech.append(res["s_f1"][r, f].tobytes())
+        return [(tch3_set[i], f_ebits, int(rows[i]), fev[i])
+                for i in range(n) if fev[i]]
+
+    def _facch_collect(self, fev):
+        """Gather the FACCH soft bits the walks found (one gather + fetch
+        per source tensor, none on blocks without FACCH bursts), then
+        replay the 4-burst accumulate / sync-flip FSM (gmr1_rx.c:454-493)
+        in fn order."""
+        if not fev:
+            return []
+        by_src: dict[int, tuple[object, list]] = {}
+        for _car, tensor, row, evs in fev:
+            _ten, items = by_src.setdefault(id(tensor), (tensor, []))
+            items.extend((row, f) for f, _fn, _s in evs)
+        got = {}
+        for tid, (tensor, items) in by_src.items():
+            ij = torch.as_tensor(items, dtype=torch.int64,
+                                 device=tensor.device)
+            rows = tensor[ij[:, 0], ij[:, 1]].cpu().numpy()
+            got[tid] = dict(zip(items, rows))
+        jobs = []
+        for car, tensor, row, evs in fev:
+            st = car.cd.tch3
+            for f, fn, sid in evs:
+                if sid != st.sync_id:
+                    jobs.append(self._facch_flush(car, fn))
+                bi = fn & 3
+                st.ebits[bi] = got[id(tensor)][(row, f)]
+                st.sync_id = sid
+                st.bi_fn[bi] = fn
+                st.burst_cnt += 1
+                if st.burst_cnt == 4:
+                    jobs.append(self._facch_flush(car, fn))
+        return [j for j in jobs if j is not None]
+
+    def _facch_flush(self, car: _Carrier, fn: int):
+        """Snapshot a 4-burst FACCH3 group for the batched decode
+        (_rx_tch3_facch_flush, gmr1_rx.c:394-451)."""
+        st = car.cd.tch3
+        job = None
+        if (st.bi_fn >= 0).any():
+            eb = st.ebits.reshape(-1).astype(np.int8).copy()
+            ciph = np.concatenate([
+                self._a5(int(st.bi_fn[k]) & 0xFFFFFFFF, 96)
+                for k in range(4)])
+            job = dict(car=car, eb=eb, ciph=ciph, fn=fn,
+                       had_ciph=bool(st.ciph))
+        st.sync_id ^= 1
+        st.burst_cnt = 0
+        st.bi_fn[:] = -1
+        st.ebits[:] = 0
+        return job
+
+    def _decode_facch(self, jobs):
+        """Both cipher variants of every flush in one batched decode:
+        rows [0, n) clear, rows [n, 2n) under the job's keystream."""
+        n = len(jobs)
+        eb = np.stack([j["eb"] for j in jobs])
+        ciph = np.zeros((2 * n, 384), np.uint8)
+        ciph[n:] = np.stack([j["ciph"] for j in jobs])
+        l2, _sbits, bad, _m = facch3.decode(
+            torch.as_tensor(np.concatenate([eb, eb]), device=self.device),
+            torch.as_tensor(ciph, device=self.device))
+        return (l2.cpu().numpy(), bad.cpu().numpy()), n
+
+    def _walk_facch(self, jobs, res, n: int) -> None:
+        """The reference's cipher retry/learn rule, host-side."""
+        l2, bad = res
+        for k, j in enumerate(jobs):
+            car, st = j["car"], j["car"].cd.tch3
+            if j["had_ciph"]:
+                l2k, badk = l2[n + k], bad[n + k]
+            else:
+                l2k, badk = l2[k], bad[k]
+                if badk and not bad[n + k]:    # cipher retry hits
+                    l2k, badk = l2[n + k], bad[n + k]
+                    st.ciph = 1
+            if not badk:
+                self._emit(car, gsmtap.GMR1_TCH3 | gsmtap.GMR1_FACCH,
+                           j["fn"] - 3, st.tn, l2k)
+                if facch3_is_ass_cmd_1(l2k):
+                    car.cd.tch9.active = True
+                    car.cd.tch9.tn = facch3_ass_cmd_1_parse(l2k)
+                    # frames before the assignment must not feed the CSD
+                    # deinterleaver (the reference starts rx_tch9 on the
+                    # next frame, gmr1_rx.c:437-441); the ring row is
+                    # reset by the correction chain (_chain_fix)
+                    car.cd.tch9.from_fn = j["fn"] + 1
+                    self._t9_assigned.add(id(car))
+                    self._log(f"[+] ARFCN {car.arfcn} TCH9 on TN "
+                              f"{car.cd.tch9.tn}")
+
+    # --- TCH9 (gmr1_rx.c:276-353 over batched demods) ------------------
+
+    def _tch9_emit_main(self, active, slot, mb, res, fix_bound,
+                        pre9) -> None:
+        """Emit the block phase's speculative TCH9 results (FACCH9 frames
+        and chained CSD payloads) for every (carrier, frame) whose
+        pre-block state survived the walks; `fix_bound` caps the frames
+        of carriers whose state changed mid-block (their later frames
+        come from _tch9_fix)."""
+        a9, act, started, fns = mb["a9"], mb["act"], mb["started"], \
+            mb["fns"]
+        sid, badf9 = res["sid9"], res["badf9"]
+        for car in active:
+            i = slot[id(car)]
+            if not (a9[i] and act[i]):
+                continue
+            bound = fix_bound.get(id(car))
+            ok = started[i] if bound is None \
+                else started[i] & (fns[i] < bound)
+            # pre-block slot: a mid-block reassignment changes
+            # cd.tch9.tn, but these frames decoded on the OLD slot
+            tn = pre9[id(car)][3]
+            for f in np.flatnonzero(ok):
+                if sid[i, f] == 0:
+                    if not badf9[i, f]:
+                        self._emit(car,
+                                   gsmtap.GMR1_TCH9 | gsmtap.GMR1_FACCH,
+                                   int(fns[i, f]), tn, res["l2f9"][i, f])
+                else:
+                    l2 = res["l2a"][f, i]
+                    self._emit(car, gsmtap.GMR1_TCH9, int(fns[i, f]),
+                               tn, l2)
+                    car.csd.append(l2.tobytes())
+
+    def _tch9_fix(self, fix9, resets, slot, il_prev, il2, F: int) -> None:
+        """Correction pass for carriers whose TCH9 state changed during
+        the walks: re-demodulate their NT9 windows with the updated
+        state, emit FACCH9 from the fresh results, and re-run the CSD
+        chain for just their ring rows from the pre-block rings
+        (_chain_fix), written into the post-block rings."""
+        n = len(fix9)
+        s9, e9s, kss = _phase_tch9s(
+            self.streams,
+            self._meta_dev(self._build_sub_meta(fix9, "tch9", F)),
+            self.kc, self.sps)
+        r9 = self._fetch_wait(self._fetch_start(s9))
+        fns = np.asarray([[c.cd.fn + f for f in range(F)] for c in fix9],
+                         np.int64)
+        started = fns >= np.asarray(
+            [c.cd.tch9.from_fn for c in fix9])[:, None]
+        is_f9 = (r9["sid9"] == 0) & started
+        is_t9 = (r9["sid9"] == 1) & started
+        for i, f in np.argwhere(is_f9):
+            if not r9["badf9"][i, f]:
+                self._emit(fix9[i], gsmtap.GMR1_TCH9 | gsmtap.GMR1_FACCH,
+                           int(fns[i, f]), fix9[i].cd.tch9.tn,
+                           r9["l2f9"][i, f])
+        fix = np.zeros((n, 3), np.int64)
+        fix[:, 0] = [slot[id(c)] for c in fix9]
+        fix[:, 1] = resets           # 1 = newly (re)assigned: zero the ring
+        fix[:, 2] = (is_t9.astype(np.int64) << np.arange(F)).sum(1)
+        self._il, l2a = _chain_fix(il_prev, il2,
+                                   torch.as_tensor(fix, device=self.device),
+                                   e9s, kss)
+        l2a = l2a.cpu().numpy()
+        for i, car in enumerate(fix9):
+            tn = car.cd.tch9.tn
+            for f in np.flatnonzero(is_t9[i]):
+                l2 = l2a[f, i]
+                self._emit(car, gsmtap.GMR1_TCH9, int(fns[i, f]), tn, l2)
+                car.csd.append(l2.tobytes())
 
     # --- top level --------------------------------------------------------
 

@@ -1,2 +1,2 @@
-"""PHY layer: burst catalog, pi4-CxPSK modem, FCCH sync (counterpart of
-gmr1_tpu/sdr/)."""
+"""PHY layer: burst catalog, pi4-CxPSK modem, FCCH sync, DKAB
+(counterpart of gmr1_tpu/sdr/)."""

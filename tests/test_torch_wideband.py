@@ -101,9 +101,13 @@ def test_imm_ass_sets_tch3_state(slice_runs):
     assert slice_runs["ia"] in [l2 for t, _fn, _tn, l2 in car.frames
                                 if t == gt.GMR1_CCCH]
     st = car.cd.tch3
-    assert st.active and (st.tn, st.p) == (TN, P)
+    assert (st.tn, st.p) == (TN, P)
     jst = next(c for c in jrx.carriers if c.arfcn == A_FULL).cd.tch3
-    assert (st.tn, st.p) == (jst.tn, jst.p)
+    # no traffic follows the IMM.ASS, so both receivers' TCH3 walks
+    # count the silent slot as weak and tear the channel down again
+    assert (st.tn, st.p, st.active, st.weak_cnt) == \
+        (jst.tn, jst.p, jst.active, jst.weak_cnt)
+    assert not st.active
 
 
 def test_block_loop_state_matches(slice_runs):

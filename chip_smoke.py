@@ -13,17 +13,42 @@ result line):
   3. kernel V     Viterbi kernel vs its plain PyTorch version on the card:
                   K5_12 flush, K5_14 flush, TCH3_K7 and K9_13 tail-biting
                   at B=2048 seeded integer-sbit bursts; K5_12 at the
-                  receiver's CCCH batch; and the traffic path's shapes at
-                  the receiver's batches (TCH3 speech TCH3_K7 T=48, FACCH9
-                  K5_12 T=320, TCH9 9k6 K5_12 T=484, FACCH3 K5_14 T=96);
-                  bits and metric exact.
+                  receiver's CCCH batch; the traffic path's shapes at the
+                  wideband receiver's batches (TCH3 speech TCH3_K7 T=48,
+                  FACCH9 K5_12 T=320, TCH9 9k6 K5_12 T=484, FACCH3 K5_14
+                  T=96); and every shape the per-carrier receiver decodes,
+                  one burst a call (BCCH/CCCH K5_12 T=212, FACCH3 K5_14
+                  T=96, FACCH9 K5_12 T=320, TCH9 K5_12 T=484 at B=1,
+                  speech TCH3_K7 T=48 at B=2); bits and metric exact.
   4. kernel P     PFB branch-filter kernel vs its plain version at the
-                  34 MHz geometry (M=1088, P=10, R=20000): the channel
-                  bank within rtol 2e-4 / atol 1e-4.
+                  34 MHz geometry (M=1088, P=10, R=20000) and at the
+                  30.72 MS/s wide-carrier geometry (M=984, hop=492, the
+                  perfect-reconstruction prototype's P): the channel bank
+                  within rtol 2e-4 / atol 1e-4.
   5. kernel A5    A5/1 keystream kernel vs its plain version at the
                   receiver's NT9 batch (8512 frame numbers, 658 bits) and
-                  vs the a5.c transcription `keystream_np`: bit-exact.
-  6. slice        a synthetic 34 MHz L-band capture with every usable grid
+                  at batch 1 for the per-carrier receiver's 96, 208 and
+                  658 bits, and vs the a5.c transcription `keystream_np`:
+                  bit-exact.
+  6. carrier      the per-carrier entry point: a one-carrier capture at
+                  sps 4 with the e2e story (FCCH, SI1, IMM.ASS, speech,
+                  FACCH3 ASS.CMD.1, DKABs, FACCH9, ciphered 9k6 CSD,
+                  teardown) through `python -m gmr1_tpu_torch.rx SPS
+                  CAP CAP KEY CAP --device cuda` in-process: every
+                  GSMTap frame, speech frame and CSD payload held
+                  against the synthesis truth; kernels V and A5 launched.
+  7. paths        the wideband receiver's newer paths through the CLI:
+                  a 30.72 MS/s capture (off the 31.25 kHz grid: the
+                  pre-resampler; M=984) with every channel inside the
+                  pre-resampler's passband (884) live and control-only, comb stream 0 carrying a second FCCH beam
+                  3 frames later (SI1 with sa_sirfn_delay 3), and a
+                  width-3 and a width-5 wide carrier (FCCH + SI1) on
+                  columns left empty for them; `--wideband CAP --fs
+                  30.72e6 --beams 2 --wide AxW --wide BxW --stream
+                  --device cuda`: every seeded carrier and both beams
+                  decode their own SI1s (and CCCHs) bit-exact, both wide
+                  carriers their SI1s, and no other frame is emitted.
+  8. slice        a synthetic 34 MHz L-band capture with every usable grid
                   channel live (FCCH every 8 frames, SI1 BCCH at k%8==2,
                   one CCCH burst at k%8==3, noise); the carriers of comb
                   stream 0 also carry a TCH3/TCH9 story (IMM.ASS, speech,
@@ -36,8 +61,11 @@ result line):
                   CSD order and TCH3 teardown checked per carrier, and
                   all three kernels launched by the receiver.
 
-The last three lines are the card's name and power limit, a JSON object
-with each kernel's launches, error and times, and
+Kernel launches are counted per path (carrier, paths, slice): each
+count is set to 0 just before the path runs and read just after, and a
+path fails if a kernel it runs was never launched.  The last three lines
+are the card's name and power limit, a JSON object with each kernel's
+launches (all paths, and per path), error and times, and
 {"ok": true, "device": {...}}.
 """
 
@@ -48,6 +76,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -130,11 +159,15 @@ def _ass_cmd_1_l2(rng, tn9: int) -> np.ndarray:
     return l2
 
 
-def build_stream(rng, n_frames: int, story: str | None = None):
+def build_stream(rng, n_frames: int, story: str | None = None,
+                 beam2: bool = False):
     """One payload stream's 4-sps baseband + its truth.
 
     Control on every stream: FCCH at k%8==0, SI1 at k%8==2, a CCCH at
-    k%8==3.  `story` adds traffic in the second 8-frame cycle (base 8):
+    k%8==3.  `beam2` adds a second FCCH beam 3 frames later (its FCCH in
+    place of the CCCH at k%8==3, its SI1s with sa_sirfn_delay 3 at
+    k%8==5, tests/test_wideband.py:255-290).  `story` adds traffic in the
+    second 8-frame cycle (base 8):
       "e2e"       IMM.ASS (TN 10, P 9) at k=11, speech at 12-14, FACCH3
                   ASS.CMD.1 to TN 13 at 16-19, DKABs at 20-21, FACCH9 on
                   TN 13 at 20, ciphered 9k6 CSD on TN 13 at 21-25, then
@@ -171,6 +204,12 @@ def build_stream(rng, n_frames: int, story: str | None = None):
             bb[k * FRAME4:k * FRAME4 + len(chirp)] += chirp
         elif k % 8 == 2:
             l2 = si1_l2(rng, F0 + k)
+            truth["si1"][F0 + k] = bytes(l2)
+            place(k, modem.mod(BU.BCCH, bcch.encode(l2)))
+        elif beam2 and k % 8 == 3:
+            bb[k * FRAME4:k * FRAME4 + len(chirp)] += chirp
+        elif beam2 and k % 8 == 5:
+            l2 = si1_l2(rng, F0 + k, delay=3)
             truth["si1"][F0 + k] = bytes(l2)
             place(k, modem.mod(BU.BCCH, bcch.encode(l2)))
         elif k % 8 == 3:
@@ -357,6 +396,334 @@ def verify_slice(rx, seeded: dict, truths) -> dict:
                 stray_frames=sum(len(c.frames) for c in strays))
 
 
+# --------------------------------------------------------------------------
+# [carrier]: the per-carrier entry point
+# --------------------------------------------------------------------------
+
+CARRIER_FRAMES = 40           # 1.6 s: the e2e story and TCH3 teardown
+CARRIER_LEAD = 8600           # START_DISCARD + margin (samples)
+
+
+def carrier_capture(seed: int = 0xCA2):
+    """One carrier at sps 4: noise lead, then build_stream's e2e story;
+    returns (complex64 capture, truth)."""
+    rng = np.random.default_rng(seed)
+    bb, truth = build_stream(rng, CARRIER_FRAMES, "e2e")
+    cap = np.zeros(CARRIER_LEAD + len(bb) + 2000, np.complex64)
+    cap[CARRIER_LEAD:CARRIER_LEAD + len(bb)] = bb
+    cap += ((rng.standard_normal(len(cap)) + 1j * rng.standard_normal(
+        len(cap))) * 0.01).astype(np.complex64)
+    return cap, truth
+
+
+def pcap_frames(path: str) -> list[tuple[int, int, int, int, bytes]]:
+    """(arfcn, type, fn, tn, l2) of every GSMTap packet a GsmtapSink wrote
+    to its pcap (LINKTYPE_RAW IPv4/UDP records)."""
+    import struct
+    with open(path, "rb") as f:
+        raw = f.read()
+    out, o = [], 24
+    while o < len(raw):
+        n = struct.unpack_from("<IIII", raw, o)[2]
+        pkt = raw[o + 16:o + 16 + n]
+        _v, _l, _t, tn, arfcn, _s, _q, fn, sub, *_ = struct.unpack(
+            "!BBBBHbbIBBBB", pkt[28:44])
+        out.append((arfcn, sub, fn, tn, pkt[44:]))
+        o += 16 + n
+    return out
+
+
+def _read(path: str) -> bytes:
+    """A payload file the CLI wrote (none when there was no payload)."""
+    if not os.path.exists(path):
+        return b""
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def verify_carrier(frames, csd: bytes, speech: bytes, truth) -> dict:
+    """Hold the per-carrier CLI's output against the e2e truth: every
+    BCCH/CCCH/FACCH3/FACCH9 frame bit-exact at its fn and every seeded
+    one decoded (SI1 and CCCH: all but possibly the first cycle, which
+    precedes the lock), exactly the two DKABs with the seeded signs,
+    every speech frame equal to the truth, one TCH9 frame per CSD payload
+    and payloads 0-2 contiguous in the CSD output."""
+    from gmr1_tpu_torch.rx import gsmtap as gt
+    f3t = gt.GMR1_TCH3 | gt.GMR1_FACCH
+    f9t = gt.GMR1_TCH9 | gt.GMR1_FACCH
+    dkt = gt.GMR1_TCH3 | gt.GMR1_DKAB
+    by_type = {gt.GMR1_BCCH: "si1", gt.GMR1_CCCH: "ccch", f3t: "facch3",
+               f9t: "facch9"}
+    got = dict(si1=0, ccch=0, facch3=0, facch9=0, dkab=0, tch9=0)
+    for _arfcn, t, fn, _tn, l2 in frames:
+        if t == dkt:
+            _require([int(b < 0) for b in np.frombuffer(l2, np.int8)]
+                     == DKAB_BITS, ("DKAB bits", fn, l2.hex()))
+            got["dkab"] += 1
+            continue
+        if t == gt.GMR1_TCH9:
+            got["tch9"] += 1
+            continue
+        _require(t in by_type, ("unexpected type", t, fn))
+        want = truth[by_type[t]].get(fn)
+        _require(want == l2, (by_type[t], fn, l2.hex(), want))
+        got[by_type[t]] += 1
+    _require(got["si1"] >= len(truth["si1"]) - 1
+             and got["ccch"] >= len(truth["ccch"]) - 1, got)
+    for k in ("facch3", "facch9"):
+        _require(got[k] == len(truth[k]), (k, got[k], truth[k]))
+    _require(got["dkab"] == 2, got)
+    _require(speech == b"".join(truth["speech"]),
+             ("speech", len(speech), len(truth["speech"])))
+    pays = [csd[i:i + 60] for i in range(0, len(csd), 60)]
+    _require(len(pays) == got["tch9"] and truth["csd"][0][0] in pays,
+             ("CSD", len(pays), got["tch9"]))
+    i = pays.index(truth["csd"][0][0])
+    _require(pays[i:i + 3] == truth["csd"][0][:3], ("CSD order", i))
+    return dict(got, speech=len(truth["speech"]), csd=len(pays))
+
+
+def phase_carrier(tmp: str, card: str) -> dict:
+    """[carrier]: the per-carrier CLI on the card; returns its kernel
+    launches."""
+    import torch
+
+    from gmr1_tpu_torch.channelizer.pfb import branch_filter
+    from gmr1_tpu_torch.ops.a5 import keystream
+    from gmr1_tpu_torch.ops.viterbi import decode_trellis
+    from gmr1_tpu_torch.rx.__main__ import main as rx_main
+    cap, truth = carrier_capture()
+    path = os.path.join(tmp, "carrier.cfile")
+    cap.tofile(path)
+    out = {k: os.path.join(tmp, f"carrier.{k}")
+           for k in ("pcap", "csd", "speech")}
+    argv = [str(SPS), path, path, KC.tobytes().hex(), path, "--device",
+            "cuda", "--no-udp", "--pcap", out["pcap"], "--csd-out",
+            out["csd"], "--speech-out", out["speech"]]
+    walls = []
+    for run in ("cold", "warm"):     # the second run in the same process
+        for f in out.values():
+            if os.path.exists(f):
+                os.remove(f)
+        decode_trellis.launches = branch_filter.launches = 0
+        keystream.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = rx_main(argv)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = dict(viterbi=decode_trellis.launches,
+                        pfb=branch_filter.launches, a5=keystream.launches)
+        print(f"[carrier] {run} CLI wall {walls[-1]:.2f} s = "
+              f"{len(cap) / walls[-1] / 1e6:.4f} Msamples/s ({card}); "
+              "kernel launches: " + ", ".join(
+                  f"{k} {v}" for k, v in launches.items()))
+        _require(rc == 0, ("per-carrier CLI exit code", rc))
+        n = verify_carrier(pcap_frames(out["pcap"]), _read(out["csd"]),
+                           _read(out["speech"]), truth)
+    print(f"[carrier] {len(cap)} samples ({len(cap) / (23400.0 * SPS):.2f} s"
+          f" at sps {SPS}); frames: SI1 {n['si1']}, CCCH {n['ccch']}, "
+          f"FACCH3 {n['facch3']}, DKAB {n['dkab']}, FACCH9 {n['facch9']}, "
+          f"TCH9 {n['tch9']}, all bit-exact in both runs; speech "
+          f"{n['speech']} frames exact, CSD {n['csd']} payloads (0-2 in "
+          "order)")
+    for name in ("viterbi", "a5"):
+        _require(launches[name] > 0,
+                 f"the per-carrier receiver never launched the {name} kernel")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# [paths]: off-grid rate, multi-beam acquisition, wide carriers, --stream
+# --------------------------------------------------------------------------
+
+PATHS_FS = 30.72e6            # USRP B2xx rate, off the 31.25 kHz grid
+PATHS_BLOCKS = 5              # content blocks, then one noise block
+WIDE_SPECS = ((CENTER_ARFCN + 150, 3), (CENTER_ARFCN - 250, 5))
+
+
+def _comb_period(fs: float, phasors: dict) -> np.ndarray:
+    """One period of sum_o phasors[o] * exp(2j*pi*o*31250*t) at rate fs.
+    With integral-Hz fs every grid offset repeats after
+    P = fs/gcd(fs, 31250) samples (24576 at 30.72 MS/s), offset o on DFT
+    bin o*31250/gcd mod P: one P-point IFFT, exact."""
+    g = int(np.gcd(int(fs), 31250))
+    period = int(fs) // g
+    spec = np.zeros(period, np.complex128)
+    for o, ph in phasors.items():
+        spec[(o * (31250 // g)) % period] += ph
+    return (np.fft.ifft(spec) * period).astype(np.complex64)
+
+
+def _upsample(bb: np.ndarray, k: int) -> np.ndarray:
+    """Band-limited k-fold upsampling (zero-padded FFT) of a baseband
+    whose content ends before its last 2000 samples."""
+    n = bb.shape[0]
+    spec = np.fft.fft(bb)
+    up = np.zeros(n * k, np.complex128)
+    up[:n // 2] = spec[:n // 2]
+    up[n * k - (n - n // 2):] = spec[n // 2:]
+    return (np.fft.ifft(up) * k).astype(np.complex64)
+
+
+def synthesize_paths(fs: float, content_blocks: int,
+                     wide_specs=WIDE_SPECS, seed: int = 0x9A7):
+    """Wideband capture at an off-grid rate: every grid channel inside
+    the pre-resampler's passband live and control-only as NS comb
+    streams (stream 0 with a second
+    beam), a width-3 and a width-5 wide carrier (FCCH, SI1 and CCCH at
+    their own symbol rate) on columns left empty for them, then one
+    block of noise.  The content comes first so the 650 ms multi-beam
+    scan sees two SI cycles of both beams.  Each baseband is upsampled
+    8x (band-limited) before the linear interpolation to fs, which puts
+    the interpolation images 33 dB or more down instead of 14 dB three
+    channels away, and the noise sets a narrow carrier's SNR to 20 dB:
+    no image decodes as a carrier of its own on the unseeded columns.
+    Returns (planar (N, 2) float32, center, {arfcn: stream}, [truth per
+    stream], [(Channel, truth) per wide carrier])."""
+    from gmr1_tpu_torch.channelizer import pfb
+    from gmr1_tpu_torch.channelizer.arfcn import Channel
+
+    center = 1525e6 + 31250 * CENTER_ARFCN
+    chz = pfb.Channelizer(fs, center, sps=SPS, need_nx=True)
+    _require(chz.pre_resamp is not None and chz.rotation == 0.0,
+             ("paths capture must be off the grid", fs))
+    # live carriers stay inside the pre-resampler's passband (0.45 of
+    # the input rate): one in its transition band, next to Nyquist, has
+    # an image only ~10 dB down on the next outer column, which the
+    # receiver rightly decodes as a carrier of its own
+    span = min(chz.n_chans // 2 - 12, int(0.45 * fs / 31250))
+    wides = [Channel(a, width=w) for a, w in wide_specs]
+    empty = {a for ch in wides for a in range(ch.arfcns[0] - 1,
+                                              ch.arfcns[-1] + 2)}
+    arfcns = [CENTER_ARFCN + o for o in range(-span, span)
+              if CENTER_ARFCN + o not in empty]
+    rng = np.random.default_rng(seed)
+    n_frames = content_blocks * F
+    streams, truths = zip(*[build_stream(rng, n_frames, None, beam2=s == 0)
+                            for s in range(NS)])
+    wide_bb = [build_stream(rng, n_frames * ch.width) for ch in wides]
+    combs = [_comb_period(fs, {a - CENTER_ARFCN: np.exp(
+        2j * np.pi * rng.random()) for a in arfcns if a % NS == s})
+        for s in range(NS)]
+    combs += [_comb_period(fs, {ch.arfcn - CENTER_ARFCN: 1.0})
+              for ch in wides]
+    period = combs[0].shape[0]
+    n_block = int(round(F * 0.04 * fs))     # raw samples of 8 frames
+    total = (content_blocks + 1) * n_block
+    out = np.empty((total, 2), np.float32)
+    up = 8
+    pad = np.zeros(2000, np.complex64)
+    bbs = [_upsample(np.concatenate([bb, pad]), up)
+           for bb in list(streams) + [bbw for bbw, _tr in wide_bb]]
+    rates = [23400.0 * SPS * up] * NS \
+        + [ch.symbol_rate * SPS * up for ch in wides]
+    # complex noise variance for a 20 dB SNR in a 23.4 kHz carrier
+    sigma = np.sqrt(fs / 23400.0 / 100.0 / 2.0)
+    for b in range(content_blocks + 1):
+        n0 = b * n_block
+        n = min(n_block, total - n0)
+        t = np.arange(n0, n0 + n, dtype=np.float64)
+        ph = np.arange(n0, n0 + n, dtype=np.int64) % period
+        wb = np.zeros(n, np.complex64)
+        for bb, rate, comb in zip(bbs, rates, combs):
+            grid = np.arange(bb.shape[0], dtype=np.float64)
+            pos = t * rate / fs
+            x = np.interp(pos, grid, bb.real, right=0.0) \
+                + 1j * np.interp(pos, grid, bb.imag, right=0.0)
+            wb += x.astype(np.complex64) * comb[ph]
+        blk = out[n0:n0 + n]
+        blk[:, 0] = wb.real
+        blk[:, 1] = wb.imag
+        blk += rng.standard_normal((n, 2)) * sigma
+    return (out, center, {a: a % NS for a in arfcns}, truths,
+            [(ch, tr) for ch, (_bb, tr) in zip(wides, wide_bb)])
+
+
+def verify_paths(frames, seeded: dict, truths, wides) -> dict:
+    """Hold the wideband CLI's frames against the truth: every frame of a
+    seeded ARFCN or wide carrier bit-exact at its fn (BCCH and CCCH
+    only); each narrow carrier >= 3 SI1s; on stream 0 both beams decode
+    >= 3 SI1s of their own (fn%8 == 2 and fn%8 == 5); each wide carrier
+    >= 2 SI1s; no frame of any other ARFCN (strays emit nothing)."""
+    from gmr1_tpu_torch.rx import gsmtap as gt
+    by_type = {gt.GMR1_BCCH: "si1", gt.GMR1_CCCH: "ccch"}
+    wide_truth = {ch.arfcn: tr for ch, tr in wides}
+    si1, bad = {}, []
+    for arfcn, t, fn, _tn, l2 in frames:
+        tr = wide_truth.get(arfcn)
+        if tr is None and arfcn in seeded:
+            tr = truths[seeded[arfcn]]
+        if tr is None or t not in by_type \
+                or tr[by_type[t]].get(fn) != l2:
+            bad.append((arfcn, t, fn, "seeded" if tr else "unseeded"))
+        elif t == gt.GMR1_BCCH:
+            si1.setdefault(arfcn, set()).add(fn)
+    _require(not bad, (f"{len(bad)} frames off the truth", bad[:10]))
+    n = dict(narrow=0, beam_b=0, wide=0, frames=len(frames))
+    for arfcn, stream in seeded.items():
+        fns = si1.get(arfcn, set())
+        a = {fn for fn in fns if fn % 8 == 2}
+        _require(len(a) >= 3, (arfcn, "SI1s", sorted(fns)))
+        n["narrow"] += 1
+        if stream == 0:
+            _require(len(fns - a) >= 3, (arfcn, "beam B SI1s", sorted(fns)))
+            n["beam_b"] += 1
+    for arfcn in wide_truth:
+        _require(len(si1.get(arfcn, ())) >= 2, (arfcn, "wide SI1s"))
+        n["wide"] += 1
+    return n
+
+
+def phase_paths(tmp: str, card: str) -> dict:
+    """[paths]: the wideband CLI over the off-grid, multi-beam, wide
+    capture on the card; returns its kernel launches."""
+    import torch
+
+    from gmr1_tpu_torch.channelizer.pfb import branch_filter
+    from gmr1_tpu_torch.ops.a5 import keystream
+    from gmr1_tpu_torch.ops.viterbi import decode_trellis
+    from gmr1_tpu_torch.rx.__main__ import main as rx_main
+    t0 = time.perf_counter()
+    wb, center, seeded, truths, wides = synthesize_paths(PATHS_FS,
+                                                         PATHS_BLOCKS)
+    path = os.path.join(tmp, "paths.cfile")
+    wb.tofile(path)
+    n_samp = wb.shape[0]
+    del wb
+    print(f"[paths] synthesized {n_samp / 1e6:.1f} Msamples "
+          f"({n_samp / PATHS_FS:.2f} s at {PATHS_FS / 1e6:.2f} MS/s, "
+          f"{len(seeded)} live carriers, wide "
+          f"{', '.join(str(ch) for ch, _ in wides)}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    pcap = os.path.join(tmp, "paths.pcap")
+    argv = ["--wideband", path, "--fs", str(PATHS_FS), "--center",
+            str(center), "--beams", "2", "--stream", "--device", "cuda",
+            "--no-udp", "--pcap", pcap]
+    for ch, _ in wides:
+        argv += ["--wide", str(ch)]
+    decode_trellis.launches = branch_filter.launches = keystream.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = rx_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(viterbi=decode_trellis.launches,
+                    pfb=branch_filter.launches, a5=keystream.launches)
+    print(f"[paths] CLI wall {wall:.2f} s = {n_samp / wall / 1e6:.2f} "
+          f"Msamples/s vs real time {PATHS_FS / 1e6:.2f} ({card}); kernel "
+          "launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    _require(rc == 0, ("wideband CLI exit code", rc))
+    n = verify_paths(pcap_frames(pcap), seeded, truths, wides)
+    print(f"[paths] {n['frames']} frames, all bit-exact; {n['narrow']} "
+          f"narrow carriers with >= 3 SI1s, {n['beam_b']} with both beams, "
+          f"{n['wide']} wide carriers; no frame off the seeded ARFCNs")
+    for name, v in launches.items():
+        _require(v > 0, f"the wideband paths never launched the {name} "
+                 "kernel")
+    return launches
+
+
 def _cuda_ms(fn, iters: int) -> float:
     import torch
     fn()
@@ -404,7 +771,13 @@ def phase_viterbi(rng, dev, n_car: int):
              (CV.TCH3_K7, 48, 2 * n_car * F, "TCH3 speech"),
              (CV.K5_12, 320, n_car * F, "FACCH9"),
              (CV.K5_12, 484, n_car * F, "TCH9 9k6"),
-             (CV.K5_14, 96, n_car, "FACCH3 jobs x 2 ciphers")]
+             (CV.K5_14, 96, n_car, "FACCH3 jobs x 2 ciphers"),
+             # the per-carrier receiver: one burst a decode
+             (CV.K5_12, 212, 1, "per-carrier BCCH/CCCH"),
+             (CV.K5_14, 96, 1, "per-carrier FACCH3"),
+             (CV.K5_12, 320, 1, "per-carrier FACCH9"),
+             (CV.K5_12, 484, 1, "per-carrier TCH9 9k6"),
+             (CV.TCH3_K7, 48, 2, "per-carrier speech, 2 frames")]
     err, out = 0.0, None
     for code, t_steps, b, what in cases:
         sym, sign, flush = _trellis_case(code, t_steps, b, rng, dev)
@@ -455,19 +828,37 @@ def phase_a5(rng, dev, batch: int):
     plain_ms = _cuda_ms(lambda: a5.keystream_plain(key, fns, 658), 1)
     print(f"[A5]   kernel {ms:.4f} ms (dl only, as the receiver asks: "
           f"{ms_dl:.4f} ms), plain {plain_ms:.3f} ms")
+    # the per-carrier receiver: one frame number a call, dl only
+    for nbits in (96, 208, 658):
+        fn1 = torch.as_tensor([int(host[3])], device=dev)
+        kd, _ = a5.keystream(key, fn1, nbits, with_ul=False)
+        pd, _ = a5.keystream_plain(key, fn1, nbits, with_ul=False)
+        rd, _ = a5.keystream_np(key, int(host[3]), nbits)
+        bad1 = int((kd != pd).sum()) + int((kd[0].cpu().numpy() != rd).sum())
+        k_ms = _cuda_ms(lambda: a5.keystream(key, fn1, nbits, with_ul=False),
+                        20)
+        p_ms = _cuda_ms(lambda: a5.keystream_plain(key, fn1, nbits,
+                                                   with_ul=False), 1)
+        print(f"[A5] B=1 nbits={nbits} (dl): bit mismatches vs plain and "
+              f"keystream_np {bad1}; kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.3f} ms")
+        _require(bad1 == 0, ("A5 keystream at batch 1", nbits))
     return float(nbad), ms, plain_ms
 
 
-def phase_pfb(rng, dev):
-    """Kernel P vs plain at the 34 MHz geometry (the receiver's own
-    prototype filter, seeded input); returns (max |err| of the bank,
-    branch-filter ms, plain ms)."""
+def phase_pfb(rng, dev, fs: float = FS, need_nx: bool = False):
+    """Kernel P vs plain at the geometry of rate fs (the receiver's own
+    prototype filter; need_nx: the perfect-reconstruction prototype that
+    wide carriers switch on), seeded input; returns (max |err| of the
+    bank, branch-filter ms, plain ms)."""
     import torch
 
     from gmr1_tpu_torch.channelizer import pfb
-    ana = pfb.Channelizer(FS, 1525e6 + 31250 * CENTER_ARFCN).analyzer
+    ana = pfb.Channelizer(fs, 1525e6 + 31250 * CENTER_ARFCN,
+                          need_nx=need_nx).analyzer
     m, p, hop, r_cnt = ana.m, ana.p, ana.hop, 2500 * F
-    _require((m, p) == (1088, 10), (m, p))
+    if fs == FS:
+        _require((m, p) == (1088, 10), (m, p))
     x = torch.as_tensor(rng.normal(size=(r_cnt * hop + p * m, 2))
                         .astype(np.float32), device=dev)
     wa, dft, qpar = ana._tables(x.device)
@@ -531,9 +922,16 @@ def main() -> int:
     n_car = 2 * (1088 // 2 - 12)          # the slice's live carriers
     v_err, v_ms, v_plain = phase_viterbi(rng, dev, n_car)
     p_err, p_ms, p_plain = phase_pfb(rng, dev)
+    p_err = max(p_err, phase_pfb(rng, dev, PATHS_FS, need_nx=True)[0])
     a_err, a_ms, a_plain = phase_a5(rng, dev, n_car * F)
 
-    # ---- 6. the slice ------------------------------------------------
+    # ---- 6-7. the per-carrier CLI and the wideband paths -------------
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["carrier"] = phase_carrier(tmp, card)
+        by_path["paths"] = phase_paths(tmp, card)
+
+    # ---- 8. the slice ------------------------------------------------
     t0 = time.perf_counter()
     wb, center, seeded, truths = synthesize(FS, CONTENT_BLOCKS)
     print(f"[slice] synthesized {wb.shape[0] / 1e6:.1f} Msamples "
@@ -571,22 +969,23 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2f} s" for k, v in rx.prof.items()))
     for name, n in launches.items():
         _require(n > 0, f"the receiver never launched the {name} kernel")
+    by_path["slice"] = launches
 
+    def per(name):
+        return dict(launches=sum(v[name] for v in by_path.values()),
+                    launches_by_path={k: v[name] for k, v in by_path.items()})
     kern = [
         dict(name="viterbi", route="cuda",
              source="gmr1_tpu_torch/kernels/viterbi.cu",
              replaces="gmr1_tpu/ops/pallas_viterbi.py:152",
-             launches=launches["viterbi"], max_abs_err=v_err, ms=v_ms,
-             plain_ms=v_plain),
+             **per("viterbi"), max_abs_err=v_err, ms=v_ms, plain_ms=v_plain),
         dict(name="pfb_branch_filter", route="cuda",
              source="gmr1_tpu_torch/kernels/pfb.cu",
              replaces="gmr1_tpu/ops/pallas_pfb.py:109",
-             launches=launches["pfb"], max_abs_err=p_err, ms=p_ms,
-             plain_ms=p_plain),
+             **per("pfb"), max_abs_err=p_err, ms=p_ms, plain_ms=p_plain),
         dict(name="a5", route="cuda", source="gmr1_tpu_torch/kernels/a5.cu",
              replaces="gmr1_tpu/ops/a5.py:148",
-             launches=launches["a5"], max_abs_err=a_err, ms=a_ms,
-             plain_ms=a_plain),
+             **per("a5"), max_abs_err=a_err, ms=a_ms, plain_ms=a_plain),
     ]
     print(card)
     print(json.dumps({"kernels": kern}))

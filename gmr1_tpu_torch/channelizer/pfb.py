@@ -1,6 +1,6 @@
 """Polyphase filterbank wideband channelizer.
 
-Counterpart of gmr1_tpu/channelizer/pfb.py (on-grid sample rates):
+Counterpart of gmr1_tpu/channelizer/pfb.py:
 
   analysis     2x-oversampled M-channel PFB.  The branch filter is a
                2P+1-tap FIR down the rows of the hop-row view of the
@@ -8,11 +8,18 @@ Counterpart of gmr1_tpu/channelizer/pfb.py (on-grid sample rates):
                kernels/pfb.cu on the card, the plain FIR on the CPU),
                writing the packed-real DFT activation; the M-point
                channel transform is one dense float32 matrix product.
-  arb resample 32-phase polyphase fractional resampler geometry (host
-               numpy); the streamed receiver applies it as one dense
-               per-frame window matrix.
-  extraction   per-carrier channel select + RRC resample to sps x
-               symbol rate (rx/wideband.py's ingest step).
+  arb resample 32-phase polyphase fractional resampler (linear phase
+               interpolation, pfb.arb_resampler_ccf): host geometry, and
+               tap-by-tap gathers on the device; the streamed receiver
+               applies the per-carrier RRC as one dense per-frame window
+               matrix.
+  pre-resample off-grid sample rates land on the 31.25 kHz grid through
+               the exact-rational period matrix of the pre-resampler
+               (`StreamPreResampler`: one 2-D GEMM a block).
+  extraction   per-carrier channel select + RRC resample to sps x symbol
+               rate; wide carriers (2/3/5 subchannels) rotate-and-sum at
+               the output rate (`Channelizer.extract`, and its streamed
+               form `WideStreamer`).
 """
 
 from __future__ import annotations
@@ -23,8 +30,9 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..ops import cplx
 from . import filters
-from .arfcn import BASE_BANDWIDTH, BASE_SYMRATE, align_freq
+from .arfcn import BASE_BANDWIDTH, BASE_SYMRATE, Channel, align_freq
 
 torch.backends.cuda.matmul.allow_tf32 = False   # the channel DFT is f32
 
@@ -200,21 +208,33 @@ class PFBAnalyzer:
 
 
 # --------------------------------------------------------------------------
-# Arbitrary polyphase resampler (host geometry)
+# Arbitrary polyphase resampler
 # --------------------------------------------------------------------------
 
 class ArbResampler:
-    """Fractional-ratio polyphase resampler geometry
-    (pfb.arb_resampler_ccf): branch taps and the gather / dense-matrix
-    forms of one output window, all host numpy."""
+    """Fractional-ratio polyphase resampler (pfb.arb_resampler_ccf).
 
-    def __init__(self, ratio: float, taps: np.ndarray, n_phases: int = 32):
+    Phase geometry is host numpy, precomputed per input length; device
+    work is a gather and a weighted sum per tap, linear interpolation
+    between adjacent polyphase branches."""
+
+    def __init__(self, ratio: float, taps: np.ndarray | None = None,
+                 n_phases: int = 32,
+                 ratio_frac: tuple[int, int] | None = None):
+        """ratio_frac: optional EXACT (num, den) with ratio = num/den,
+        which enables the integer-exact periodic geometry
+        (periodic_geometry / StreamPreResampler)."""
+        if taps is None:
+            # GNURadio default: lowpass at the slower side's Nyquist
+            cutoff = 0.5 * min(1.0, float(ratio))
+            taps = filters.low_pass_2(n_phases, n_phases, cutoff,
+                                      0.2 * cutoff, 80, "blackmanharris")
         t = np.asarray(taps, np.float32)
         tpb = int(np.ceil(len(t) / n_phases))
         h = np.zeros(tpb * n_phases, np.float32)
         h[:len(t)] = t
         # branch p taps h[p::L], applied to x[k], x[k-1], ...
-        self._setup(ratio, h.reshape(tpb, n_phases).T.copy())
+        self._setup(ratio, h.reshape(tpb, n_phases).T.copy(), ratio_frac)
 
     @classmethod
     def from_branches(cls, ratio: float,
@@ -222,11 +242,19 @@ class ArbResampler:
         """Resampler from (L, tpb) branch taps, e.g. the JAX resampler's
         `branches`."""
         self = cls.__new__(cls)
-        self._setup(ratio, np.asarray(branches, np.float32))
+        self._setup(ratio, np.asarray(branches, np.float32), None)
         return self
 
-    def _setup(self, ratio: float, branches: np.ndarray) -> None:
+    def _setup(self, ratio: float, branches: np.ndarray,
+               ratio_frac: tuple[int, int] | None) -> None:
         self.ratio = float(ratio)
+        self.ratio_frac = None
+        if ratio_frac is not None:
+            num, den = ratio_frac
+            g = int(np.gcd(num, den))
+            self.ratio_frac = (num // g, den // g)
+            if abs(self.ratio - num / den) >= 1e-9:
+                raise ValueError(f"ratio {ratio} != {num}/{den}")
         self.branches = branches                   # (L, tpb)
         self.l, self.tpb = branches.shape
 
@@ -241,6 +269,16 @@ class ArbResampler:
         k2, p2 = (ip + 1) // self.l, (ip + 1) % self.l
         return (n_out, k1.astype(np.int32), p1.astype(np.int32),
                 k2.astype(np.int32), p2.astype(np.int32), frac)
+
+    def __call__(self, x):
+        """Planar (..., N, 2) -> (..., floor(N*ratio), 2)."""
+        x = cplx.tensor(x)
+        _n_out, k1, p1, k2, p2, frac = self._geometry(x.shape[-2])
+        # index k -> xp[k + tpb]; taps before the input read zeros
+        xp = torch.cat([x.new_zeros((*x.shape[:-2], self.tpb, 2)), x],
+                       dim=-2)
+        return self.resample_window(xp, k1 + self.tpb, p1, k2 + self.tpb,
+                                    p2, frac)
 
     def window_geometry(self, out_start: int, n_out: int):
         """Gather geometry producing outputs [out_start, out_start+n_out)
@@ -275,18 +313,202 @@ class ArbResampler:
                   br[p2] * frac[:, None])
         return k_min, w
 
+    def block_gather(self, n_out: int, hist: int):
+        """Static gather geometry for STREAMED resampling: outputs
+        [0, n_out) of every block, where the block's first input sample
+        sits at index `hist` of rows_full = [carried history | new
+        block].  Valid only when the resampling phase is block-periodic
+        (n_out * l / ratio an integral multiple of l), so one geometry
+        serves every block.  Feed to resample_window."""
+        up_end = n_out * self.l / self.ratio
+        if abs(up_end - round(up_end)) >= 1e-6 or round(up_end) % self.l:
+            raise ValueError(f"{n_out} outputs are not block-periodic at "
+                             f"ratio {self.ratio}")
+        n = np.arange(n_out, dtype=np.float64)
+        up = n * self.l / self.ratio
+        ip = np.floor(up).astype(np.int64)
+        frac = (up - ip).astype(np.float32)
+        k1, p1 = ip // self.l + hist, ip % self.l
+        k2, p2 = (ip + 1) // self.l + hist, (ip + 1) % self.l
+        if k1.min() - self.tpb + 1 < 0:
+            raise ValueError(f"history {hist} shorter than {self.tpb} taps")
+        return (k1.astype(np.int32), p1.astype(np.int32),
+                k2.astype(np.int32), p2.astype(np.int32), frac)
+
+    def periodic_geometry(self):
+        """EXACT periodic resampling geometry from the rational ratio.
+
+        With ratio = num/den (reduced), the upsampled-grid position of
+        output n is up(n) = n*L*den/num, so the (branch, fraction)
+        geometry repeats every P = num outputs while the input advances
+        exactly K = den samples: integer math, drift-free forever.
+        Returns (P, K, W, B): out[q*P + phi] = W[phi] @ x[q*K + B :
+        q*K + B + W.shape[1]] with zero-padding for x[<0]."""
+        if self.ratio_frac is None:
+            raise ValueError("the periodic geometry needs an exact "
+                             "ratio_frac")
+        num, den = self.ratio_frac
+        p_out, k_in = num, den
+        ll = self.l
+        a = np.arange(p_out, dtype=np.int64) * ll * den
+        ip = a // num
+        frac = (a % num) / num
+        k1, p1 = ip // ll, ip % ll
+        k2, p2 = (ip + 1) // ll, (ip + 1) % ll
+        b = int(k1.min()) - self.tpb + 1
+        e = int(k2.max())
+        w = np.zeros((p_out, e - b + 1), np.float32)
+        i = np.arange(self.tpb)
+        phi = np.arange(p_out)
+        br = self.branches
+        np.add.at(w, (phi[:, None], k1[:, None] - i[None, :] - b),
+                  br[p1] * (1.0 - frac)[:, None])
+        np.add.at(w, (phi[:, None], k2[:, None] - i[None, :] - b),
+                  br[p2] * frac[:, None])
+        return p_out, k_in, w, b
+
+    def resample_window(self, xw, k1r, p1, k2r, p2, frac):
+        """Resample a pre-sliced window (..., k_span, 2) with host
+        geometry from window_geometry / block_gather: per tap i, one
+        gather of x[k - i] weighted by branch tap i (tpb small gathers in
+        place of one (n_out, tpb)-sized one); indices clamp into the
+        window."""
+        xw = cplx.tensor(xw)
+        dev = xw.device
+        last = xw.shape[-2] - 1
+        br = torch.as_tensor(self.branches, device=dev)
+
+        def tap(k, p):
+            k = torch.as_tensor(k, dtype=torch.int64, device=dev)
+            rows = br[torch.as_tensor(p, dtype=torch.int64, device=dev)]
+            y = None
+            for i in range(self.tpb):
+                t = xw[..., torch.clamp(k - i, 0, last), :] \
+                    * rows[:, i, None]
+                y = t if y is None else y + t
+            return y
+
+        f = torch.as_tensor(frac, device=dev)[:, None]
+        return tap(k1r, p1) * (1.0 - f) + tap(k2r, p2) * f
+
+
+def _periodic_resample(x_rel, w_t, phi0: int, n_out: int, nq: int,
+                      k_in: int):
+    """x_rel (nq*k_in + k_span, 2) -> (n_out, 2) on-grid samples.
+
+    Window q is x_rel[q*k_in : q*k_in + k_span], a strided view; the
+    polyphase combine is ONE 2-D GEMM of the (2*nq, k_span) windows with
+    the (k_span, P) transposed period matrix `w_t`, and phi0 (the period
+    phase of the first output) picks the first output."""
+    k_span, p_out = w_t.shape
+    xw = x_rel.unfold(0, k_span, k_in)[:nq]             # (nq, 2, k_span)
+    out = xw.reshape(2 * nq, k_span) @ w_t              # (2nq, P)
+    out = out.view(nq, 2, p_out).transpose(1, 2).reshape(nq * p_out, 2)
+    return out[phi0:phi0 + n_out]
+
+
+class StreamPreResampler:
+    """Block-streamed off-grid pre-resampler.
+
+    Streams arbitrary-fs captures onto the 31.25 kHz channel grid in
+    O(block) memory: the host carries only the raw-input tail, the
+    device work per block is one GEMM with the exact-rational period
+    matrix (ArbResampler.periodic_geometry), and the phase never drifts:
+    integer bookkeeping replaces the reference flowgraph's
+    fractional_resampler state (utils/gmr1_rx_sdr.py:411-417).
+
+    `pull(n)` supplies raw planar float32 (m <= n signals EOF);
+    produce_block() returns (on-grid (n_out, 2) tensor on `device`,
+    n_valid), where n_valid < n_out flags the zero-padded tail after
+    EOF."""
+
+    P_MAX = 1 << 20     # period bound: integral-Hz rates stay tiny
+
+    def __init__(self, rr: ArbResampler, n_out: int, pull,
+                 device: str | torch.device = "cpu"):
+        p_out, k_in, w, b = rr.periodic_geometry()
+        if p_out > self.P_MAX:
+            raise ValueError(f"period {p_out} too large; use an "
+                             "integral-Hz capture rate")
+        self.p, self.k, self.b = p_out, k_in, b
+        self.k_span = w.shape[1]
+        self.n_out = n_out
+        self.nq = n_out // p_out + 2
+        self.device = torch.device(device)
+        self._w_t = torch.as_tensor(w.T.copy(), device=self.device)
+        self._pull = pull
+        self._n = 0                  # on-grid samples produced
+        self._raw0 = 0               # abs raw index of _raw[0]
+        self._raw = np.zeros((0, 2), np.float32)
+        self._raw_end = None         # abs raw length once EOF is seen
+        self.n_total = None          # total on-grid samples (at EOF)
+        num, den = rr.ratio_frac
+        self._num, self._den, self._l = num, den, rr.l
+
+    def _ensure_raw(self, end_abs: int) -> None:
+        """Grow the raw buffer to cover [..., end_abs)."""
+        need = end_abs - (self._raw0 + self._raw.shape[0])
+        if need <= 0 or self._raw_end is not None:
+            return
+        got = np.asarray(self._pull(need), np.float32)
+        if got.shape[0]:
+            self._raw = np.concatenate([self._raw, got]) \
+                if self._raw.shape[0] else got
+        if got.shape[0] < need:
+            self._raw_end = self._raw0 + self._raw.shape[0]
+            # exact total: outputs whose last tap k2(n) fits
+            ll, num, den = self._l, self._num, self._den
+            n_est = int(self._raw_end * num / den)
+            while ((n_est * ll * den) // num + 1) // ll \
+                    > self._raw_end - 1:
+                n_est -= 1
+            while ((((n_est + 1) * ll * den) // num + 1) // ll
+                   <= self._raw_end - 1):
+                n_est += 1
+            self.n_total = n_est + 1
+
+    def produce_block(self):
+        """Next n_out on-grid samples on the device + the valid count."""
+        q0, phi0 = divmod(self._n, self.p)
+        start = q0 * self.k + self.b
+        length = self.nq * self.k + self.k_span
+        self._ensure_raw(start + length)
+        # assemble [start, start+length) with zero pads at both ends
+        x = np.zeros((length, 2), np.float32)
+        lo = max(start, self._raw0)
+        hi = min(start + length, self._raw0 + self._raw.shape[0])
+        if hi > lo:
+            x[lo - start:hi - start] = \
+                self._raw[lo - self._raw0:hi - self._raw0]
+        out = _periodic_resample(torch.from_numpy(x).to(self.device),
+                                self._w_t, phi0, self.n_out, self.nq, self.k)
+        n_valid = self.n_out if self.n_total is None \
+            else max(0, min(self.n_out, self.n_total - self._n))
+        self._n += self.n_out
+        # drop raw the next block can no longer need
+        nxt = (self._n // self.p) * self.k + self.b
+        drop = max(0, nxt - self._raw0)
+        if drop:
+            self._raw = self._raw[drop:]
+            self._raw0 += drop
+        return out, n_valid
+
 
 # --------------------------------------------------------------------------
-# Channelizer front-end (on-grid sample rates)
+# Full channelizer front-end
 # --------------------------------------------------------------------------
 
 class Channelizer:
-    """Wideband capture -> channel bank at 2x the carrier spacing, plus
-    the per-carrier RRC resampler (utils/gmr1_rx_sdr.py:391-602).  Only
-    sample rates on the 31.25 kHz grid are supported so far (the JAX
-    package's off-grid pre-resampler is not ported yet)."""
+    """Wideband capture -> per-carrier streams at sps x symbol rate.
 
-    def __init__(self, samp_rate: float, center_freq: float, sps: int = 4):
+    Mirrors the reference PFBBase/PFBOutputBranch structure
+    (utils/gmr1_rx_sdr.py:391-602): grid alignment pre-rotation,
+    optional pre-resampling to an integer channel grid, 2x-oversampled
+    analysis, per-output RRC resampling (+ subchannel recombination for
+    wide carriers)."""
+
+    def __init__(self, samp_rate: float, center_freq: float, sps: int = 4,
+                 need_nx: bool = False):
         self.samp_rate = samp_rate
         self.center_freq = center_freq
         self.sps = sps
@@ -296,14 +518,40 @@ class Channelizer:
                          if abs(mid - center_freq) > 200 else 0.0)
         self.pfb_center_freq = mid
         self.n_chans = (int(np.ceil(samp_rate / cw)) + 1) & ~1
-        if abs((self.n_chans * cw) / samp_rate - 1.0) >= 1e-5:
-            raise NotImplementedError(
-                f"sample rate {samp_rate} is off the {cw:.0f} Hz channel "
-                "grid (the off-grid pre-resampler is not ported yet)")
-        taps = filters.low_pass(1.0, self.n_chans * cw, cw * 0.5, cw * 0.25)
+        resamp = (self.n_chans * cw) / samp_rate
+        # exact rational ratio when fs is integral Hz: enables the
+        # drift-free streaming form (StreamPreResampler)
+        frac = (int(self.n_chans * cw), int(samp_rate)) \
+            if samp_rate == int(samp_rate) else None
+        self.pre_resamp = None if abs(resamp - 1.0) < 1e-5 \
+            else ArbResampler(resamp, ratio_frac=frac)
+        mid_rate = self.n_chans * cw
+        if need_nx:   # perfect-reconstruction prototype (:420-428)
+            taps = filters.low_pass_2(1.0, self.n_chans, 0.5, 0.2, 80,
+                                      "blackmanharris")
+        else:         # looser filter (:430-437)
+            taps = filters.low_pass(1.0, mid_rate, cw * 0.5, cw * 0.25)
         self.analyzer = PFBAnalyzer(self.n_chans, taps)
         self.chan_rate = 2.0 * cw                 # 2x oversampled
         self._resamplers: dict = {}
+
+    def freq2index(self, freq: float) -> int | None:
+        """(:485-491)"""
+        idx = int(round((freq - self.pfb_center_freq) / BASE_BANDWIDTH))
+        if idx >= self.n_chans // 2 or idx <= -(self.n_chans // 2):
+            return None
+        return idx + self.n_chans if idx < 0 else idx
+
+    def process(self, x):
+        """Wideband planar (N, 2) -> channel bank (R, M, 2)."""
+        x = cplx.tensor(x)
+        if self.rotation:
+            ph = cplx.expi(self.rotation * torch.arange(
+                x.shape[0], dtype=torch.float32, device=x.device))
+            x = cplx.mul(x, ph)
+        if self.pre_resamp is not None:
+            x = self.pre_resamp(x)
+        return self.analyzer(x)
 
     def _rrc_resampler(self, width: int) -> ArbResampler:
         key = ("rrc", width)
@@ -316,3 +564,125 @@ class Channelizer:
                                               0.35, ntaps)
             self._resamplers[key] = ArbResampler(ratio, taps)
         return self._resamplers[key]
+
+    def _sub_resampler(self, width: int) -> ArbResampler:
+        key = ("sub", width)
+        if key not in self._resamplers:
+            ratio = (BASE_SYMRATE * width * self.sps) / self.chan_rate
+            self._resamplers[key] = ArbResampler(ratio)
+        return self._resamplers[key]
+
+    def wide_streamer(self, ch: Channel, block_rows: int) -> "WideStreamer":
+        """Streamed form of extract() for a wide carrier: feed bank-row
+        blocks, get stream chunks that concatenate to the offline extract
+        output."""
+        return WideStreamer(self, ch, block_rows)
+
+    def extract(self, chans, ch: Channel):
+        """Channel bank (R, M, 2) -> one carrier's planar stream at
+        sps*sym_rate (None if the carrier is off the bank)."""
+        chans = cplx.tensor(chans)
+        if ch.width == 1:
+            idx = self.freq2index(ch.frequency)
+            if idx is None:
+                return None
+            return self._rrc_resampler(1)(chans[:, idx])
+        # wide carrier: rotate-and-sum subchannels at the output rate,
+        # then RRC (the pfb_synthesizer role, :566-589)
+        out_rate = BASE_SYMRATE * ch.width * self.sps
+        acc = None
+        up = self._sub_resampler(ch.width)
+        for sub in ch.subchannels:
+            idx = self.freq2index(sub.frequency)
+            if idx is None:
+                return None
+            s = up(chans[:, idx])
+            df = sub.frequency - ch.frequency
+            # exact wrapped phase: df and out_rate are integer Hz, so the
+            # phasor repeats every period samples; index mod keeps the
+            # f32 phase argument small over long captures
+            period = _phase_period(df, out_rate)
+            n = torch.arange(s.shape[0], device=s.device) % period
+            s = cplx.mul(s, cplx.expi((2.0 * np.pi * df / out_rate)
+                                      * n.to(torch.float32)))
+            acc = s if acc is None else acc + s
+        return self._rrc_resampler(ch.width)(acc)
+
+
+def _phase_period(df: float, out_rate: float) -> int:
+    """Sample period after which 2*pi*df*n/out_rate wraps an integer
+    number of turns (df, out_rate integer Hz)."""
+    return int(out_rate) // np.gcd(int(abs(df)) or 1, int(out_rate))
+
+
+class WideStreamer:
+    """Streamed wide-carrier synthesizer (the block form of
+    Channelizer.extract for width > 1, utils/gmr1_rx_sdr.py:566-589).
+
+    Per block of bank rows: per-subchannel fractional resample to the
+    output rate (static block-periodic gather geometry), rotate each
+    subchannel to its offset with the phase carried across blocks, sum,
+    and RRC-filter (the width-RRC at ratio 1 is a plain FIR, one
+    conv1d).  All state - subchannel resampler history, FIR history,
+    rotation phase - is carried, so chunks concatenate to the offline
+    extract output.  The state lives on the device of the first block
+    fed."""
+
+    def __init__(self, chz: Channelizer, ch: Channel, block_rows: int):
+        if ch.width <= 1:
+            raise ValueError(f"{ch} is not a wide carrier")
+        self.ch = ch
+        cols = [chz.freq2index(sub.frequency) for sub in ch.subchannels]
+        if any(c is None for c in cols):
+            raise ValueError(f"{ch} is not inside the channel bank: {cols}")
+        self.cols = np.asarray(cols, np.int64)
+        w = ch.width
+        self._up = chz._sub_resampler(w)
+        rrc = chz._rrc_resampler(w)
+        out_rate = BASE_SYMRATE * w * chz.sps
+        n_out = block_rows * self._up.ratio
+        self.n_out = int(round(n_out))
+        if abs(self.n_out - n_out) >= 1e-6:
+            raise ValueError(f"{block_rows} rows give {n_out} outputs")
+        self._geom = self._up.block_gather(self.n_out, self._up.tpb)
+        self.h_up = self._up.tpb
+        dfs = np.asarray([sub.frequency - ch.frequency
+                          for sub in ch.subchannels], np.float64)
+        self._dphi = (2.0 * np.pi * dfs / out_rate).astype(np.float32)
+        self._periods = np.asarray([_phase_period(df, out_rate)
+                                    for df in dfs], np.int64)
+        # the ratio-1 FIR y[n] = sum_i fir[i] xf[n + t_fir - i] as a
+        # cross-correlation of xf[1:] with the reversed taps
+        self._fir_rev = np.ascontiguousarray(
+            np.asarray(rrc.branches[0], np.float32)[::-1])
+        self._state = None           # (hist_up, hist_fir, n0)
+
+    def feed(self, bank_rows) -> np.ndarray:
+        """bank_rows: carrier-major block rows (M, R_b, 2).  Returns the
+        wide stream chunk (n_out, 2) as host numpy."""
+        dev = bank_rows.device
+        t_fir = len(self._fir_rev)
+        if self._state is None:
+            self._state = (
+                bank_rows.new_zeros((len(self.cols), self.h_up, 2)),
+                bank_rows.new_zeros((t_fir, 2)),
+                np.zeros(len(self.cols), np.int64))
+        hist_up, hist_fir, n0 = self._state
+        rows_w = bank_rows[torch.as_tensor(self.cols, device=dev)]
+        rows_full = torch.cat([hist_up, rows_w], dim=1)
+        s = self._up.resample_window(rows_full, *self._geom)  # (W, n, 2)
+        # exact wrapped rotation (see _phase_period): index mod per
+        # subchannel keeps the f32 phase argument small forever
+        idx = (torch.as_tensor(n0, device=dev)[:, None]
+               + torch.arange(self.n_out, device=dev)) \
+            % torch.as_tensor(self._periods, device=dev)[:, None]
+        ph = torch.as_tensor(self._dphi, device=dev)[:, None] \
+            * idx.to(torch.float32)
+        acc = torch.sum(cplx.mul(s, cplx.expi(ph)), dim=0)    # (n, 2)
+        xf = torch.cat([hist_fir, acc])
+        y = torch.nn.functional.conv1d(
+            xf[1:].T[:, None, :],
+            torch.as_tensor(self._fir_rev, device=dev)[None, None, :])
+        self._state = (rows_full[:, -self.h_up:], xf[-t_fir:],
+                       (n0 + self.n_out) % self._periods)
+        return y[:, 0, :].T.cpu().numpy()

@@ -1,20 +1,30 @@
 """Block-streamed wideband receiver.
 
 Counterpart of gmr1_tpu/rx/wideband.py `WidebandReceiver` in its
-single-device form (`mesh=None`, one FCCH beam per carrier, narrow
-carriers, float32 ingest): one wideband capture in, every carrier's
-BCCH, CCCH, TCH3 (speech, FACCH3, DKAB) and TCH9 (FACCH9, 9k6 CSD)
-frames out.
+single-device form (`mesh=None`, float32 ingest): one wideband capture
+in, every carrier's BCCH, CCCH, TCH3 (speech, FACCH3, DKAB) and TCH9
+(FACCH9, 9k6 CSD) frames out.
 
   acquisition  the capture prefix streams through the ingest step twice:
                pass 1 accumulates the FCCH dual-chirp correlation power
-               per block, pass 2 gathers each candidate's fine/SNR window
-               (one gather per block), then fine TOA, frequency and SNR.
+               per block (330 ms, or the 650 ms multi-beam window with
+               `beams` > 1), pass 2 gathers each candidate's fine/SNR
+               window (one gather per block), then fine TOA, frequency
+               and SNR; with `beams` > 1 every ARFCN forks up to `beams`
+               carriers gated against its strongest beam
+               (gmr1_rx.c:643-741).
+  pre-resample an off-grid sample rate lands on the 31.25 kHz grid block
+               by block through the exact-rational StreamPreResampler
+               (the raw tail stays on the host, one GEMM a block).
   ingest step  once per TDMA block (block_frames frames, 0.32 s at 8):
                PFB analysis of the block with the carried overlap-save
                halo -> per-carrier RRC resample by ONE per-frame window
                matrix with the carried bank history -> rolling stream
                buffer of (F+1) frames of tail + F new frames per carrier.
+  wide         each configured wide carrier (width 2/3/5) synthesizes its
+               stream from the block's bank rows (WideStreamer) into a
+               BoundedStream that its own per-carrier Receiver decodes
+               incrementally (stream_run) during the block loop.
   block phase  `_phase_block`, computed speculatively for every carrier
                from the pre-block channel state: BCCH + CCCH demod and
                decode; the TCH3 slot path (energy, DKAB, burst type,
@@ -34,8 +44,7 @@ frames out.
                a small phase for just those carriers (`_phase_tch3s`,
                `_phase_tch9s`, `_chain_fix`).
 
-The other JAX-side options (`mesh`, `beams > 1`, `wide_channels`, int16
-ingest) are not ported yet.
+The JAX-side `mesh` option and int16 ingest are not ported.
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ import numpy as np
 import torch
 
 from ..channelizer.arfcn import _BASES, BASE_BANDWIDTH
-from ..channelizer.pfb import Channelizer
+from ..channelizer.pfb import Channelizer, StreamPreResampler
 from ..l1 import bcch, ccch, facch3, facch9, tch3, tch9
 from ..ops import a5 as a5op
 from ..ops import cplx
@@ -56,10 +65,10 @@ from ..sdr import bursts as BU
 from ..sdr import dkab, fcch, modem
 from ..sdr.defs import SYM_RATE
 from . import gsmtap
-from .cfile import ArraySource, SampleSource
-from .receiver import (ChanDesc, bcch_tdma_align, ccch_imm_ass_parse,
-                       ccch_is_imm_ass, facch3_ass_cmd_1_parse,
-                       facch3_is_ass_cmd_1)
+from .cfile import ArraySource, BoundedStream, SampleSource
+from .receiver import (ChanDesc, Receiver, bcch_tdma_align,
+                       ccch_imm_ass_parse, ccch_is_imm_ass,
+                       facch3_ass_cmd_1_parse, facch3_is_ass_cmd_1)
 
 torch.backends.cuda.matmul.allow_tf32 = False   # the RRC window matmul is f32
 
@@ -266,8 +275,8 @@ class WidebandReceiver:
     `wb` is planar float32 (N, 2), complex64 (N,) host samples or a
     `cfile.SampleSource`.  `device` is where the streams live and every
     phase runs; "cuda" on a machine without CUDA raises.  The remaining
-    arguments are the JAX receiver's; `mesh`, `beams`, `wide_channels`
-    and `h2d_dtype` accept only their defaults so far.
+    arguments are the JAX receiver's; `mesh` and `h2d_dtype` accept only
+    their defaults (None, "float32").
     """
 
     def __init__(self, wb, samp_rate: float, center_freq: float,
@@ -280,13 +289,12 @@ class WidebandReceiver:
                  wide_channels=None, h2d_dtype: str = "float32",
                  device: str | torch.device = "cpu"):
         unported = [name for name, off in (
-            ("mesh", mesh is not None), ("beams", beams != 1),
-            ("wide_channels", bool(wide_channels)),
+            ("mesh", mesh is not None),
             ("h2d_dtype", h2d_dtype != "float32")) if off]
         if unported:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(unported)} (single device, one "
-                "beam, narrow carriers, float32 ingest only)")
+                f"not ported: {', '.join(unported)} (single device, float32 "
+                "ingest only)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' was asked for, but "
@@ -298,8 +306,13 @@ class WidebandReceiver:
         self.block_frames = block_frames
         self.fcch_type = fcch_type
         self.verbose = verbose
+        self.beams = beams
         self.base_freq = _BASES[(band, uplink)]
-        self.chz = Channelizer(samp_rate, center_freq, sps=sps)
+        # wide carriers (width 2/3/5) are explicit config, as in the
+        # reference channelizer CLI (utils/gmr1_rx_sdr.py:216-339)
+        self.wide_channels = list(wide_channels or [])
+        self.chz = Channelizer(samp_rate, center_freq, sps=sps,
+                               need_nx=bool(self.wide_channels))
         self.rrc = self.chz._rrc_resampler(1)
         if not isinstance(wb, SampleSource):
             wb = ArraySource(np.asarray(wb))
@@ -314,6 +327,7 @@ class WidebandReceiver:
         self.n_stream = None         # known at EOF
         self.arfcn_filter = arfcns
         self.carriers: list[_Carrier] = []
+        self.wide_carriers: list[_Carrier] = []
         self.frames: list[tuple[int, int, int, int, bytes]] = []
         # device-resident TCH9 deinterleaver rings, one row per carrier
         # slot (created at the first block, advanced by the block phase)
@@ -322,6 +336,11 @@ class WidebandReceiver:
         # wall-clock per pipeline section, accumulated across run()
         self.prof: dict[str, float] = {}
         self._build_ingest()
+        self._pre = None
+        if self.chz.pre_resamp is not None:
+            self._pre = StreamPreResampler(self.chz.pre_resamp,
+                                           self.n_block, self._pull,
+                                           device=self.device)
 
     def _tick(self, key: str, t0: float) -> float:
         t1 = time.perf_counter()
@@ -355,6 +374,20 @@ class WidebandReceiver:
             torch.zeros((self._halo_len, 2), device=dev),
             torch.zeros((m, self._hist, 2), device=dev),
             torch.zeros((m, self.T_tail, 2), device=dev))
+        # each wide channel: a streamed synthesizer over the block's bank
+        # rows, a BoundedStream and an incrementally driven per-carrier
+        # Receiver, so wide carriers decode DURING the block loop with
+        # O(block) retained memory (the reference splits and decodes
+        # them in the same streaming flowgraph, gmr1_rx_sdr.py:566-589)
+        self._wide = [self.chz.wide_streamer(ch, self.R_b)
+                      for ch in self.wide_channels]
+        self._wide_streams = [BoundedStream() for _ in self._wide]
+        self._wide_rx = [
+            Receiver(bs, sps, tch_file=bs, tch_csd_file=bs,
+                     kc=self.kc.tobytes(), fcch_type=self.fcch_type,
+                     verbose=self.verbose, device=dev)
+            for bs in self._wide_streams]
+        self._wide_fwd = [0] * len(self._wide)
 
     def _resample(self, rows_full):
         """(M, H + R_b, 2) bank rows -> (M, S_b, 2) carrier streams."""
@@ -370,16 +403,21 @@ class WidebandReceiver:
         return s.transpose(2, 3).reshape(m, self.S_b, 2)
 
     def _step(self, x, halo, bank_hist, stream_tail):
-        """One ingest step: (new samples, carried state) -> (streams,
-        next state)."""
+        """One ingest step: (new samples, carried state) -> (streams, the
+        block's bank rows (M, R_b, 2), next state)."""
         blk = torch.cat([halo, x])
         rows = self.chz.analyzer.block(blk).permute(1, 0, 2)   # (M, R_b, 2)
         rows_full = torch.cat([bank_hist, rows], dim=1)
         stream = torch.cat([stream_tail, self._resample(rows_full)], dim=1)
-        return stream, (blk[-self._halo_len:], rows_full[:, -self._hist:],
-                        stream[:, -self.T_tail:])
+        return stream, rows, (blk[-self._halo_len:],
+                              rows_full[:, -self._hist:],
+                              stream[:, -self.T_tail:])
 
-    def _put(self, x: np.ndarray):
+    def _put(self, x):
+        """A block on the device: host arrays are uploaded, tensors (the
+        pre-resampler's blocks are already there) pass through."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     def _rotate_x(self, x: np.ndarray, n0: int) -> np.ndarray:
@@ -401,8 +439,13 @@ class WidebandReceiver:
         self._n_pulled += x.shape[0]
         return x
 
-    def _pull_block(self) -> tuple[np.ndarray, int]:
-        """Next n_block samples, zero-padded at EOF, + the valid count."""
+    def _pull_block(self):
+        """Next n_block on-grid samples, zero-padded at EOF, + the valid
+        count; off-grid rates come through the pre-resampler, as a tensor
+        on the device."""
+        if self._pre is not None:
+            x, nv = self._pre.produce_block()
+            return x, int(nv)
         x = self._pull(self.n_block)
         nv = x.shape[0]
         if nv < self.n_block:
@@ -431,10 +474,13 @@ class WidebandReceiver:
 
     def _ingest_block(self, b: int) -> None:
         """Run the ingest step for block b; sets self.streams (M, T_buf,
-        2) and self._buf0 (absolute output sample of buffer index 0)."""
+        2) and self._buf0 (absolute output sample of buffer index 0), and
+        feeds every wide channel's synthesizer into its stream."""
         t = time.perf_counter()
-        self.streams, self._state = self._step(self._next_put_block(),
-                                               *self._state)
+        self.streams, rows, self._state = self._step(self._next_put_block(),
+                                                     *self._state)
+        for ws, bs in zip(self._wide, self._wide_streams):
+            bs.feed(ws.feed(rows))
         self._buf0 = b * self.S_b - self.T_tail
         self._tick("ingest", t)
 
@@ -495,17 +541,20 @@ class WidebandReceiver:
         blocks through the ingest step from fresh state."""
         state = self._state
         for b, x in enumerate(blocks):
-            stream, state = self._step(x, *state)
+            stream, _rows, state = self._step(x, *state)
             yield b, stream
 
     def acquire(self) -> list[_Carrier]:
         """Batched FCCH scan over every grid channel (fcch_single_init of
         gmr1_rx.c:605 vectorized across the transponder), streamed over
-        the 330 ms capture prefix in two passes (see the module doc)."""
+        the capture prefix in two passes (see the module doc), with
+        multi-beam forking when `beams` > 1 (gmr1_rx.c:643-741)."""
         sps, ft = self.sps, self.fcch_type
         blen = ft.len_syms * sps
         n_b = ft.len_syms
-        scan = (330 * SYM_RATE * sps) // 1000
+        n330 = (330 * SYM_RATE * sps) // 1000
+        n650 = (650 * SYM_RATE * sps) // 1000
+        scan = n330 if self.beams <= 1 else n650
         acq_len = scan + 2 * blen
         m = self.chz.n_chans
         hop = self.chz.analyzer.hop
@@ -514,8 +563,10 @@ class WidebandReceiver:
 
         blocks, valid_in = self._acq_pull_blocks(n_abl)
         avail_out = int(np.floor((valid_in // hop) * self.rrc.ratio))
-        if avail_out < scan + blen:
+        if avail_out < n330 + blen:
             raise ValueError("capture shorter than the 330 ms FCCH scan")
+        # clip the scan to the real stream length: windows past EOF are
+        # zero-padded and would null SI-cycle-mixed multi-beam candidates
         n_corr = -(-min(scan + blen, avail_out - blen) // sps) - n_b + 1
 
         # ---- pass 1: correlation-power scan -----------------------------
@@ -523,27 +574,35 @@ class WidebandReceiver:
                  for _, buf in self._acq_replay(blocks)]
         pwr = torch.cat(parts, dim=1)[:, n_b - 1:n_b - 1 + n_corr]
         del parts
-        toa_r = fcch.rough_from_pwr(ft, pwr, sps).cpu().numpy()
+        if self.beams <= 1:
+            toa_r = fcch.rough_from_pwr(ft, pwr, sps).cpu().numpy()[:, None]
+            valid = np.ones_like(toa_r, bool)
+        else:
+            toa_r, valid = fcch.rough_multi_batch_pwr(ft, pwr, sps,
+                                                      k=self.beams)
         del pwr
         toa_r = np.clip(toa_r, 0, acq_len - 2 * blen).astype(np.int64)
 
         # ---- pass 2: gather candidate fine/SNR windows ------------------
         total = n_abl * self.S_b
         wlen = 3 * blen                     # [toa_r - blen, toa_r + 2*blen)
-        cand = []                           # (col, s0)
+        cand = []                           # (col, beam, s0)
         per_block: list[list[int]] = [[] for _ in range(n_abl)]
         for col in range(m):
             if self.arfcn_filter is not None \
                and self._col2arfcn(col) not in self.arfcn_filter:
                 continue
-            s0 = min(max(int(toa_r[col]) - blen, 0), total - wlen)
-            bw = max(0, -(-(s0 + wlen) // self.S_b) - 1)
-            per_block[bw].append(len(cand))
-            cand.append((col, s0))
+            for k in range(toa_r.shape[1]):
+                if not valid[col, k]:
+                    continue
+                s0 = min(max(int(toa_r[col, k]) - blen, 0), total - wlen)
+                bw = max(0, -(-(s0 + wlen) // self.S_b) - 1)
+                per_block[bw].append(len(cand))
+                cand.append((col, k, s0))
 
-        toa = np.zeros(m, np.int64)
-        ferr = np.zeros(m, np.float32)
-        snr = np.full(m, np.nan, np.float32)          # non-candidate: skip
+        toa = np.zeros(toa_r.shape, np.int64)
+        ferr = np.zeros(toa_r.shape, np.float32)
+        snr = np.full(toa_r.shape, np.nan, np.float32)  # non-cand: skip
         if cand:
             # per replay block: ONE batched window gather
             w3_parts, order = [], []
@@ -554,36 +613,50 @@ class WidebandReceiver:
                 base = b * self.S_b - self.T_tail
                 cols = torch.as_tensor([cand[ci][0] for ci in grp],
                                        device=self.device)
-                starts = torch.as_tensor([[cand[ci][1] - base] for ci in grp],
+                starts = torch.as_tensor([[cand[ci][2] - base] for ci in grp],
                                          device=self.device)
                 w3_parts.append(_windows_rows(buf, cols, starts, wlen)[:, 0])
                 order += grp
             w3 = torch.cat(w3_parts)[torch.as_tensor(
                 np.argsort(order), device=self.device)]
-            off = torch.as_tensor([int(toa_r[c]) - s0 for c, s0 in cand],
-                                  device=self.device)
+            off = torch.as_tensor([int(toa_r[c, k]) - s0
+                                   for c, k, s0 in cand], device=self.device)
             got = self._fetch_wait(self._fetch_start(dict(zip(
                 ("rel", "ferr", "snr"),
                 _acq_fine_snr(ft, w3, off, sps, blen)))))
-            for ci, (c, s0) in enumerate(cand):
-                toa[c] = s0 + int(got["rel"][ci])
-                ferr[c] = float(got["ferr"][ci])
-                snr[c] = float(got["snr"][ci])
+            for ci, (c, k, s0) in enumerate(cand):
+                toa[c, k] = s0 + int(got["rel"][ci])
+                ferr[c, k] = float(got["ferr"][ci])
+                snr[c, k] = float(got["snr"][ci])
         self.carriers = []
         for col in range(m):
             arfcn = self._col2arfcn(col)
             if self.arfcn_filter is not None \
                and arfcn not in self.arfcn_filter:
                 continue
-            s = float(snr[col])
-            if not np.isfinite(s) or s < self.snr_min:
-                continue
-            cd = ChanDesc(sps=sps)
-            cd.align = int(toa[col])
-            cd.freq_err = float(ferr[col])
-            self.carriers.append(_Carrier(col=col, arfcn=arfcn, cd=cd, snr=s))
-            self._log(f"[+] ARFCN {arfcn} FCCH @{cd.align} snr={s:.1f} "
-                      f"freq={cd.freq_err * SYM_RATE / 2 / np.pi:.1f} Hz")
+            finite = np.isfinite(snr[col])
+            ref = int(np.nanargmax(snr[col])) if finite.any() else 0
+            ref_snr = float(snr[col, ref]) if finite.any() else 0.0
+            for k in range(toa.shape[1]):
+                s = float(snr[col, k])
+                if not np.isfinite(s) or s < self.snr_min:
+                    continue
+                # multi-beam gates against the strongest beam on this
+                # ARFCN (gmr1_rx.c:706-714): snr >= ref/6, |df| <= 500 Hz
+                if self.beams > 1:
+                    if s < ref_snr / 6.0:
+                        continue
+                    dhz = abs(float(ferr[col, k]) - float(ferr[col, ref])) \
+                        * SYM_RATE / (2 * np.pi)
+                    if k != ref and dhz > 500.0:
+                        continue
+                cd = ChanDesc(sps=sps)
+                cd.align = int(toa[col, k])
+                cd.freq_err = float(ferr[col, k])
+                self.carriers.append(_Carrier(col=col, arfcn=arfcn, cd=cd,
+                                              snr=s))
+                self._log(f"[+] ARFCN {arfcn} FCCH @{cd.align} snr={s:.1f} "
+                          f"freq={cd.freq_err * SYM_RATE / 2 / np.pi:.1f} Hz")
         self._tick("acquire", t)
         return self.carriers
 
@@ -1120,25 +1193,71 @@ class WidebandReceiver:
                 self._emit(car, gsmtap.GMR1_TCH9, int(fns[i, f]), tn, l2)
                 car.csd.append(l2.tobytes())
 
+    # --- wide carriers (width 2/3/5) --------------------------------------
+
+    def _fwd_wide(self, i: int) -> None:
+        """Forward wide channel i's newly decoded frames (ARFCN-tagged) as
+        they appear: wide frames emit DURING the run, not at EOF."""
+        ch, rxw = self.wide_channels[i], self._wide_rx[i]
+        for (t, fn, tn, l2b) in rxw.frames[self._wide_fwd[i]:]:
+            self.frames.append((ch.arfcn, t, fn, tn, l2b))
+            if self.sink is not None:
+                self.sink.send(t, fn, tn, l2b, arfcn=ch.arfcn)
+        self._wide_fwd[i] = len(rxw.frames)
+
+    def _step_wide(self, eof: bool = False) -> None:
+        """Advance every wide channel's incremental Receiver over the
+        samples its BoundedStream holds, then trim the stream to the
+        receiver's look-back bound: host memory stays O(block) for the
+        whole capture (the reference's split-then-decode pipeline,
+        utils/gmr1_process_recording.py:89-110, as one streaming
+        program)."""
+        t = time.perf_counter()
+        for i, (bs, rxw) in enumerate(zip(self._wide_streams,
+                                          self._wide_rx)):
+            rxw.stream_run(eof=eof)
+            bs.trim(rxw.stream_keep_from())
+            self._fwd_wide(i)
+        self._tick("wide", t)
+
+    def _process_wide(self) -> None:
+        """EOF drain + per-channel result carriers for the wide path (the
+        incremental decode happens in _step_wide during the run)."""
+        if self._wide:
+            self._step_wide(eof=True)
+        for i, (ch, rxw) in enumerate(zip(self.wide_channels,
+                                          self._wide_rx)):
+            if not len(self._wide_streams[i]):
+                continue
+            col = self.chz.freq2index(ch.frequency)
+            car = _Carrier(col=-1 if col is None else col, arfcn=ch.arfcn,
+                           cd=ChanDesc(sps=self.sps), snr=float("nan"))
+            car.speech, car.csd = rxw.speech, rxw.csd
+            car.frames = list(rxw.frames)
+            self.wide_carriers.append(car)
+            self._log(f"[+] wide {ch}: {len(rxw.frames)} L2 frames")
+
     # --- top level --------------------------------------------------------
 
     def run(self) -> int:
         """Acquire + decode the whole capture.  Returns #L2 frames."""
         if not self.carriers:
             self.acquire()
-        if not self.carriers:
+        self.wide_carriers = []
+        if not self.carriers and not self._wide:
             self._log("[!] no FCCH found on any carrier")
             return 0
         # carriers lag the ingest frontier by up to T_tail + their initial
         # align, so after EOF keep draining with zero-input blocks until
-        # every carrier hits its done bound
+        # every carrier hits its done bound; wide channels run until EOF
         drain_max = self.T_tail // self.S_b + 3
         b = drained = 0
         self.block_walls: list[float] = []
         pending = None   # prefetched (streams, buf0, was_eof) of block b
         while True:
             t_iter = time.perf_counter()
-            if all(c.done for c in self.carriers):
+            narrow_done = all(c.done for c in self.carriers)
+            if narrow_done and (not self._wide or self._eof):
                 break
             if self._eof and drained >= drain_max:
                 break
@@ -1165,6 +1284,9 @@ class WidebandReceiver:
                 self._process_block(active, prefetch)
             else:
                 prefetch()
+            if self._wide:
+                self._step_wide()
             b += 1
             self.block_walls.append(time.perf_counter() - t_iter)
+        self._process_wide()
         return len(self.frames)

@@ -41,6 +41,29 @@ def _select(stacked, idx):
     return torch.gather(stacked, -1, idx[..., None].long())[..., 0]
 
 
+def _sync_peaks(burst: Burst, y, sps: int, w: int):
+    """Per-sync-id sub-sample TOA and normalized peak power of the
+    combined |correlation| over the w-offset search window: two (..., S)
+    tensors."""
+    toas, pwrs = [], []
+    for sid in range(burst.n_sync):
+        acc, tl = None, 0
+        for ci, chunk in enumerate(burst.sync[sid]):
+            b = chunk.pos * sps
+            seg = y[..., b:b + chunk.length * sps + w - 1, :]
+            a = cplx.absv(dsp.correlate(_ref_planar(burst, sid, ci), seg,
+                                        sps))
+            acc = a if acc is None else acc + a
+            tl += chunk.length
+        # |correlation| as a planar vector with zero imag: the peak
+        # search sees the same energies as the JAX package
+        planar = torch.stack([acc, torch.zeros_like(acc)], dim=-1)
+        toa_s, peak = dsp.peak_energy_find(planar, 3, dsp.PEAK_EARLY_LATE)
+        toas.append(toa_s)
+        pwrs.append(cplx.abs2(peak) / float(tl) ** 2)
+    return torch.stack(toas, dim=-1), torch.stack(pwrs, dim=-1)
+
+
 def demod(burst: Burst, x, sps: int, win: int, freq_shift=0.0) -> DemodResult:
     """Demodulate burst windows x (..., burst.len_syms*sps + win, 2).
 
@@ -66,25 +89,9 @@ def soft_symbols(burst: Burst, x, sps: int, win: int, freq_shift=0.0):
         raise ValueError(f"window length {x.shape[-2]} != burst + win {win}")
 
     # --- sync search over all sequences -------------------------------
-    toas, pwrs = [], []
-    for sid in range(burst.n_sync):
-        acc, tl = None, 0
-        for ci, chunk in enumerate(burst.sync[sid]):
-            b = chunk.pos * sps
-            seg = y[..., b:b + chunk.length * sps + w - 1, :]
-            a = cplx.absv(dsp.correlate(_ref_planar(burst, sid, ci), seg,
-                                        sps))
-            acc = a if acc is None else acc + a
-            tl += chunk.length
-        # |correlation| as a planar vector with zero imag: the peak
-        # search sees the same energies as the JAX package
-        planar = torch.stack([acc, torch.zeros_like(acc)], dim=-1)
-        toa_s, peak = dsp.peak_energy_find(planar, 3, dsp.PEAK_EARLY_LATE)
-        toas.append(toa_s)
-        pwrs.append(cplx.abs2(peak) / float(tl) ** 2)
-    pwr_all = torch.stack(pwrs, dim=-1)
+    toa_all, pwr_all = _sync_peaks(burst, y, sps, w)
     sync_id = torch.argmax(pwr_all, dim=-1)
-    toa = _select(torch.stack(toas, dim=-1), sync_id)
+    toa = _select(toa_all, sync_id)
     pwr = _select(pwr_all, sync_id)
 
     # --- align & decimate to 1 sps ------------------------------------
@@ -137,6 +144,53 @@ def soft_symbols(burst: Burst, x, sps: int, win: int, freq_shift=0.0):
     sv = ssyms[..., torch.as_tensor(burst.data_positions, device=dev)
                .long()]
     return sv, sync_id, toa, freq_err, pwr
+
+
+def detect(bursts: tuple[Burst, ...], x, sps: int, win: int,
+           freq_shift=0.0, e_toa=-1.0):
+    """Classify which burst type is present (gmr1_pi4cxpsk_detect).
+
+    Returns (bt_id, sync_id, toa, pwr) per batch element.  When
+    e_toa >= 0 the candidate powers are divided by |e_toa - toa|
+    (pi4cxpsk.c:657-659)."""
+    x = cplx.tensor(x)
+    dev = x.device
+    fs = torch.as_tensor(freq_shift, dtype=torch.float32, device=dev)
+    y = dsp.sig_normalize(x, 1, (fs - bursts[0].mod.rotation) / sps)
+    e_toa = torch.as_tensor(e_toa, dtype=torch.float32, device=dev)
+    sids, toas, pwrs = [], [], []
+    for bt in bursts:
+        w = y.shape[-2] - bt.len_syms * sps + 1
+        if w != win + 1:
+            raise ValueError(f"window length {x.shape[-2]} != burst + win "
+                             f"{win}")
+        t_all, p_all = _sync_peaks(bt, y, sps, w)
+        sid = torch.argmax(p_all, dim=-1)
+        toa_b = _select(t_all, sid)
+        pwr_b = _select(p_all, sid)
+        pwr_b = torch.where(
+            e_toa >= 0,
+            pwr_b / torch.clamp(torch.abs(e_toa - toa_b), min=1e-6), pwr_b)
+        sids.append(sid.to(torch.int32))
+        toas.append(toa_b)
+        pwrs.append(pwr_b)
+    pw = torch.stack(pwrs, dim=-1)
+    bt_id = torch.argmax(pw, dim=-1)
+    sync_id = _select(torch.stack(sids, dim=-1), bt_id)
+    return (bt_id.to(torch.int32), sync_id,
+            _select(torch.stack(toas, dim=-1), bt_id), _select(pw, bt_id))
+
+
+def mod_order(x, sps: int, freq_shift=0.0):
+    """Blind BPSK-vs-QPSK detect by comparing |sum x^2| vs |sum x^4|
+    (gmr1_pi4cxpsk_mod_order, pi4cxpsk.c:694-729).  Returns 2 or 4."""
+    x = cplx.tensor(x)
+    fs = torch.as_tensor(freq_shift, dtype=torch.float32, device=x.device)
+    y = dsp.sig_normalize(x, 1, (fs - np.pi / 4) / sps)
+    v = cplx.mul(y, y) / torch.clamp(cplx.abs2(y), min=1e-30)[..., None]
+    pb = cplx.abs2(torch.sum(v, dim=-2))
+    pq = cplx.abs2(torch.sum(cplx.mul(v, v), dim=-2))
+    return torch.where(pb < pq / 2.0, 4, 2)
 
 
 def quantize(nbits: int, sv):

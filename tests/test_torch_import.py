@@ -19,6 +19,8 @@ import torch
 from gmr1_tpu_torch import kernels
 from gmr1_tpu_torch.channelizer import pfb
 from gmr1_tpu_torch.ops import viterbi
+from gmr1_tpu_torch.rx import Receiver
+from gmr1_tpu_torch.rx.__main__ import main as rx_main
 from gmr1_tpu_torch.rx.wideband import WidebandReceiver
 
 torch.set_num_threads(2)
@@ -31,6 +33,9 @@ import importlib, pkgutil, sys
 import gmr1_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gmr1_tpu_torch.__path__,
                                                 "gmr1_tpu_torch.")]
+# the receiver's entry points: the package and its CLI module
+for n in ("gmr1_tpu_torch.rx", "gmr1_tpu_torch.rx.__main__"):
+    assert n in names, n
 for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules
@@ -64,6 +69,19 @@ def test_cuda_receiver_raises_without_cuda():
     with pytest.raises(RuntimeError, match="cuda"):
         WidebandReceiver(np.zeros((16, 2), np.float32), 500e3,
                          1525e6 + 31250.0 * 500, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Receiver(None, 4, device="cuda")
+
+
+def test_cli_device_defaults_to_cuda(tmp_path):
+    """The CLI runs on the card unless told otherwise: without CUDA its
+    default device raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    cap = tmp_path / "c.cfile"
+    np.zeros(64, np.complex64).tofile(cap)
+    with pytest.raises(RuntimeError, match="cuda"):
+        rx_main(["4", str(cap), "--no-udp"])
 
 
 def test_kernel_library_raises_without_cuda():
@@ -95,8 +113,13 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_unported_options_raise():
+    """`mesh` and int16 ingest are the JAX options left unported (multi-
+    beam, wide channels and off-grid rates are ported); the CLI offers
+    float32 ingest only."""
     wb = np.zeros((16, 2), np.float32)
-    for kw in (dict(mesh=object()), dict(beams=2),
-               dict(wide_channels=[1]), dict(h2d_dtype="int16")):
+    for kw in (dict(mesh=object()), dict(h2d_dtype="int16")):
         with pytest.raises(NotImplementedError):
             WidebandReceiver(wb, 500e3, 1525e6 + 31250.0 * 500, **kw)
+    with pytest.raises(SystemExit):
+        rx_main(["--wideband", "x.cfile", "--fs", "5e5", "--center",
+                 "1.5e9", "--h2d-dtype", "int16", "--device", "cpu"])

@@ -111,8 +111,14 @@ def test_channelizer_and_rrc_geometry():
 
 
 def test_off_grid_rate_is_refused():
-    with pytest.raises(NotImplementedError):
-        pfb.Channelizer(900e3, CENTER)
+    """An off-grid rate that is not integral Hz has no exact rational
+    ratio, so the streaming pre-resampler refuses it (integral-Hz
+    off-grid rates are taken: tests/test_torch_wideband_paths.py)."""
+    tz = pfb.Channelizer(900e3 + 0.5, CENTER)
+    assert tz.pre_resamp is not None and tz.pre_resamp.ratio_frac is None
+    with pytest.raises(ValueError):
+        pfb.StreamPreResampler(tz.pre_resamp, 1000,
+                               lambda n: np.zeros((0, 2), np.float32))
 
 
 def test_streamed_ingest_matches_jax(rng):
@@ -128,7 +134,7 @@ def test_streamed_ingest_matches_jax(rng):
         x = rng.normal(size=(jrx.n_block, 2)).astype(np.float32)
         out = jrx._step(jnp.asarray(x), *j_state)
         j_stream, j_state = out[0], out[1:]
-        t_stream, t_state = trx._step(torch.from_numpy(x), *t_state)
+        t_stream, _rows, t_state = trx._step(torch.from_numpy(x), *t_state)
         np.testing.assert_allclose(t_stream.numpy(), np.asarray(j_stream),
                                    **TOL)
         for a, b in zip(t_state, j_state):

@@ -111,7 +111,7 @@ def e2e():
     wb = mix_wideband({a: c.buf for a, c in caps.items()}, rng)
     jrx, trx = run_both(wb)
     return dict(jrx=jrx, trx=trx, speech=speech, fl2=bytes(fl2),
-                f9l2=bytes(f9l2), csd=csd)
+                f9l2=bytes(f9l2), csd=csd, wb=wb)
 
 
 @pytest.fixture(scope="module")
@@ -206,3 +206,40 @@ def test_reassign_both_trains_in_order(reassign):
     assert len(ib) == 3 and ib == sorted(ib), (ib, len(car.csd))
     assert max(ia) < min(ib)
     assert car.cd.tch9.tn == 14
+
+
+def test_e2e_socket_source_same_frames(e2e):
+    """tests/test_wideband.py::test_socket_source_identical_frames on
+    the port: the e2e capture served as raw cf32 over TCP (SocketSource,
+    consumed strictly forward, EOF at the peer's close) decodes the same
+    frames, speech and CSD as the JAX receiver on the array."""
+    import socket
+    import threading
+
+    from gmr1_tpu_torch.rx.cfile import SocketSource
+
+    raw = np.ascontiguousarray(e2e["wb"], np.complex64).tobytes()
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+
+    def serve():
+        conn, _ = srv.accept()
+        for i in range(0, len(raw), 1 << 18):
+            conn.sendall(raw[i:i + (1 << 18)])
+        conn.close()
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    src = SocketSource("127.0.0.1", srv.getsockname()[1])
+    try:
+        rx = TRx(src, FS, CENTER, sps=SPS, device="cpu")
+        rx.run()
+    finally:
+        src.close()
+        th.join(timeout=30)
+        srv.close()
+    assert not th.is_alive()
+    assert rx.frames == e2e["jrx"].frames
+    for jc, tc in zip(e2e["jrx"].carriers, rx.carriers):
+        assert (tc.arfcn, tc.speech, tc.csd) == (jc.arfcn, jc.speech, jc.csd)

@@ -1,6 +1,9 @@
 """Smoke test of the PyTorch port (gmr1_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab OLD    # kernels V and P of another checkout
+                                      # (OLD/gmr1_tpu_torch/kernels) beside
+                                      # this one's, and nothing else
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -16,15 +19,23 @@ result line):
                   receiver's CCCH batch; the traffic path's shapes at the
                   wideband receiver's batches (TCH3 speech TCH3_K7 T=48,
                   FACCH9 K5_12 T=320, TCH9 9k6 K5_12 T=484, FACCH3 K5_14
-                  T=96); and every shape the per-carrier receiver decodes,
+                  T=96); every shape the per-carrier receiver decodes,
                   one burst a call (BCCH/CCCH K5_12 T=212, FACCH3 K5_14
                   T=96, FACCH9 K5_12 T=320, TCH9 K5_12 T=484 at B=1,
-                  speech TCH3_K7 T=48 at B=2); bits and metric exact.
+                  speech TCH3_K7 T=48 at B=2); all-zero (fully tied)
+                  tail-biting K5 and K7 bursts; batches of 1, 3 and 33;
+                  T of 37, 45 and 70; bits and metric exact.  Each shape
+                  is timed eager and by CUDA-graph replay (device time)
+                  beside its bound and the serial-chain estimate.
   4. kernel P     PFB branch-filter kernel vs its plain version at the
                   34 MHz geometry (M=1088, P=10, R=20000) and at the
                   30.72 MS/s wide-carrier geometry (M=984, hop=492, the
-                  perfect-reconstruction prototype's P): the channel bank
-                  within rtol 2e-4 / atol 1e-4.
+                  perfect-reconstruction prototype's P): its output and
+                  the channel bank within rtol 2e-4 / atol 1e-4; timed
+                  beside its bound and the one-call yardstick
+                  F.conv1d(groups=hop) (full f32, inputs already in its
+                  layout; checked to the same tolerance, never on the
+                  port's path).
   5. kernel A5    A5/1 keystream kernel vs its plain version at the
                   receiver's NT9 batch (8512 frame numbers, 658 bits) and
                   at batch 1 for the per-carrier receiver's 96, 208 and
@@ -65,7 +76,9 @@ Kernel launches are counted per path (carrier, paths, slice): each
 count is set to 0 just before the path runs and read just after, and a
 path fails if a kernel it runs was never launched.  The last three lines
 are the card's name and power limit, a JSON object with each kernel's
-launches (all paths, and per path), error and times, and
+launches (all paths, and per path), error, times, bound (the larger of
+its bytes over 3.35 TB/s and its operations over 67 TFLOP/s f32) and
+one-call PyTorch yardstick (null where none exists), and
 {"ok": true, "device": {...}}.
 """
 
@@ -725,6 +738,8 @@ def phase_paths(tmp: str, card: str) -> dict:
 
 
 def _cuda_ms(fn, iters: int) -> float:
+    """Eager time: CUDA events around `iters` calls back to back (the
+    host's launch cost shows where it exceeds the device time)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -738,7 +753,52 @@ def _cuda_ms(fn, iters: int) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def _trellis_case(code, t_steps: int, b: int, rng, dev):
+def _graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time: `iters` calls captured in one CUDA graph, replayed
+    `reps` times (no host launch cost between the kernels)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters / reps
+
+
+# H100 SXM peaks (NVIDIA's datasheet): HBM3 rate, f32 outside the
+# tensor cores, and the boost clock used for serial-chain estimates
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+BOOST_HZ = 1.98e9
+
+
+def _bound(nbytes: float, nops: float) -> tuple[float, str]:
+    """(least ms, what sets it): the larger of the bytes over the memory
+    rate and the operations over the f32 rate."""
+    tb, to = nbytes / HBM_BPS * 1e3, nops / F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _roofline(ms: float, nbytes: float, nops: float) -> tuple[float, str,
+                                                              str]:
+    """(bound ms, what sets it, printable bound and roofline share)."""
+    bound, by = _bound(nbytes, nops)
+    return bound, by, (f"bound {bound:.5f} ms ({by}: {nbytes / 1e6:.2f} MB,"
+                       f" {nops / 1e9:.3f} Gop), roofline share "
+                       f"{bound / ms:.3f}")
+
+
+def _trellis_case(code, t_steps: int, b: int, rng, dev, zero=False):
     import torch
 
     from gmr1_tpu_torch.ops import conv as CV
@@ -749,19 +809,24 @@ def _trellis_case(code, t_steps: int, b: int, rng, dev):
     enc = CV.encode(code, torch.from_numpy(bits)).numpy()
     soft = np.where(enc > 0, -127.0, 127.0) + rng.normal(0, 40.0, enc.shape)
     soft = np.clip(np.round(soft), -127, 127).astype(np.float32)
+    if zero:                  # every metric ties
+        soft[:] = 0.0
     return (torch.as_tensor(soft.reshape(b, t_steps, code.n), device=dev),
             torch.as_tensor(sign.reshape(-1, code.n), device=dev),
             code.term == CV.TERM_FLUSH)
 
 
 def phase_viterbi(rng, dev, n_car: int):
-    """Kernel V vs plain on the card, at B=2048 and at the receiver's
-    batches for n_car carriers; returns (max |err|, ms, plain ms) at the
-    CCCH batch."""
+    """Kernel V vs plain on the card, at B=2048, at the receiver's
+    batches for n_car carriers, at B=1, on all-zero (tied) bursts, odd
+    batches and T off multiples of 32; returns (max |err|, ms, plain ms,
+    bound ms, what sets it) at the CCCH batch."""
     import torch
 
     from gmr1_tpu_torch.ops import conv as CV
     from gmr1_tpu_torch.ops import viterbi as VT
+    k5_tb = CV.ConvCode("k5_12_tb", 5, CV.K5_12.polys,
+                        term=CV.TERM_TAIL_BITING)
     cases = [(CV.K5_12, 212, 2048, ""), (CV.K5_14, 100, 2048, ""),
              (CV.TCH3_K7, 104, 2048, ""),
              (CV.ConvCode("k9_13_tb", 9, CV.K9_13.polys,
@@ -777,10 +842,22 @@ def phase_viterbi(rng, dev, n_car: int):
              (CV.K5_14, 96, 1, "per-carrier FACCH3"),
              (CV.K5_12, 320, 1, "per-carrier FACCH9"),
              (CV.K5_12, 484, 1, "per-carrier TCH9 9k6"),
-             (CV.TCH3_K7, 48, 2, "per-carrier speech, 2 frames")]
+             (CV.TCH3_K7, 48, 2, "per-carrier speech, 2 frames"),
+             # every tail-biting final metric tied: the first-max rule
+             (k5_tb, 212, 2048, "all-zero sym"),
+             (CV.TCH3_K7, 48, 2048, "all-zero sym"),
+             # batches off a multiple of the bursts a warp (4 at K=5)
+             (CV.K5_12, 212, 3, "odd B"), (CV.K5_12, 212, 33, "odd B"),
+             (CV.TCH3_K7, 48, 1, "odd B"), (CV.TCH3_K7, 48, 3, "odd B"),
+             (CV.TCH3_K7, 48, 33, "odd B"),
+             # T off a multiple of the 32-step symbol chunks
+             (CV.K5_14, 37, 33, "T % 32 != 0"),
+             (k5_tb, 45, 3, "T % 32 != 0"),
+             (CV.TCH3_K7, 70, 5, "T % 32 != 0")]
     err, out = 0.0, None
     for code, t_steps, b, what in cases:
-        sym, sign, flush = _trellis_case(code, t_steps, b, rng, dev)
+        sym, sign, flush = _trellis_case(code, t_steps, b, rng, dev,
+                                         zero="all-zero" in what)
         kb, km = VT.decode_trellis(sym, sign, flush)
         pb, pm = VT.decode_trellis_plain(sym, sign, flush)
         torch.cuda.synchronize()
@@ -789,14 +866,28 @@ def phase_viterbi(rng, dev, n_car: int):
         print(f"[V] {code.name} B={b} T={t_steps} n={code.n} "
               f"S={code.num_states}{' (' + what + ')' if what else ''}: "
               f"bit mismatches {nbad}, metric max|err| {merr}")
-        _require(nbad == 0 and merr == 0.0, code.name)
+        _require(nbad == 0 and merr == 0.0, (code.name, b, t_steps, what))
         err = max(err, merr)
         ms = _cuda_ms(lambda: VT.decode_trellis(sym, sign, flush), 20)
+        dev_ms = _graph_ms(lambda: VT.decode_trellis(sym, sign, flush))
         plain_ms = _cuda_ms(lambda: VT.decode_trellis_plain(sym, sign, flush),
                             3)
-        print(f"[V]   kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
+        s_cnt, n = code.num_states, code.n
+        # bytes: sym in, bits and metric out; operations: two adds and a
+        # compare a state a step, and the 2^n distinct branch metrics
+        nbytes = b * t_steps * (4 * n + 1) + 4 * b + 8 * s_cnt * n
+        nops = b * t_steps * (3 * s_cnt + 2 * n * 2 ** n)
+        # one step forward (add, max) and one back (shift, or): 16 clocks
+        chain = t_steps * 16 / BOOST_HZ * 1e3
+        bound, by, line = _roofline(dev_ms, nbytes, nops)
+        print(f"[V]   kernel {ms:.4f} ms eager, {dev_ms:.4f} ms device "
+              f"(CUDA graph), plain {plain_ms:.3f} ms (no yardstick); "
+              f"{line} (device time); serial chain >= {chain:.5f} ms "
+              f"(T x 16 clocks at {BOOST_HZ / 1e9:.2f} GHz); the "
+              f"{'chain' if chain > bound else by} bound applies: share "
+              f"{max(chain, bound) / dev_ms:.3f}")
         if what == "CCCH":
-            out = (ms, plain_ms)
+            out = (ms, plain_ms, bound, by)
     return (err, *out)
 
 
@@ -826,8 +917,15 @@ def phase_a5(rng, dev, batch: int):
     ms = _cuda_ms(lambda: a5.keystream(key, fns, 658), 20)
     ms_dl = _cuda_ms(lambda: a5.keystream(key, fns, 658, with_ul=False), 20)
     plain_ms = _cuda_ms(lambda: a5.keystream_plain(key, fns, 658), 1)
+    # bytes: the frame numbers in, a byte a bit out (dl + ul); the chain:
+    # 314 + 2 * 658 dependent LFSR clocks a thread, each four dependent
+    # integer operations (and, popc, or, majority) of 4 clocks
+    bound, by, line = _roofline(ms, batch * (8 + 2 * 658), 0)
+    chain = (314 + 2 * 658) * 16 / BOOST_HZ * 1e3
     print(f"[A5]   kernel {ms:.4f} ms (dl only, as the receiver asks: "
-          f"{ms_dl:.4f} ms), plain {plain_ms:.3f} ms")
+          f"{ms_dl:.4f} ms), plain {plain_ms:.3f} ms (no yardstick); "
+          f"{line}; serial chain >= {chain:.5f} ms (1,630 clocks x 16 at "
+          f"{BOOST_HZ / 1e9:.2f} GHz): the chain bound applies")
     # the per-carrier receiver: one frame number a call, dl only
     for nbits in (96, 208, 658):
         fn1 = torch.as_tensor([int(host[3])], device=dev)
@@ -843,14 +941,15 @@ def phase_a5(rng, dev, batch: int):
               f"keystream_np {bad1}; kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.3f} ms")
         _require(bad1 == 0, ("A5 keystream at batch 1", nbits))
-    return float(nbad), ms, plain_ms
+    return float(nbad), ms, plain_ms, bound, by
 
 
 def phase_pfb(rng, dev, fs: float = FS, need_nx: bool = False):
     """Kernel P vs plain at the geometry of rate fs (the receiver's own
     prototype filter; need_nx: the perfect-reconstruction prototype that
     wide carriers switch on), seeded input; returns (max |err| of the
-    bank, branch-filter ms, plain ms)."""
+    bank and of a2, branch-filter ms, plain ms, bound ms, what sets it,
+    F.conv1d ms)."""
     import torch
 
     from gmr1_tpu_torch.channelizer import pfb
@@ -874,12 +973,124 @@ def phase_pfb(rng, dev, fs: float = FS, need_nx: bool = False):
           f"(peak {float(ref.abs().max()):.1f}), within rtol 2e-4/atol 1e-4: "
           f"{ok}")
     _require(ok, "PFB bank outside rtol 2e-4 / atol 1e-4")
+    ref = pfb.branch_filter_plain(x, wa, r_cnt, hop)
+    a2 = pfb.branch_filter(x, wa, r_cnt, hop)
+    a2_err = float((a2 - ref).abs().max())
+    print(f"[P]   branch filter output a2 ({r_cnt}, {4 * hop}) max|err| vs "
+          f"plain {a2_err}")
+    _require(bool(torch.all((a2 - ref).abs() <= 1e-4 + 2e-4 * ref.abs())),
+             "PFB branch filter outside rtol 2e-4 / atol 1e-4")
     ms = _cuda_ms(lambda: pfb.branch_filter(x, wa, r_cnt, hop), 20)
     plain_ms = _cuda_ms(lambda: pfb.branch_filter_plain(x, wa, r_cnt, hop), 5)
     block_ms = _cuda_ms(lambda: ana.block(x), 5)
-    print(f"[P]   branch filter kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; "
-          f"whole analysis block (kernel + f32 DFT) {block_ms:.3f} ms")
-    return err, ms, plain_ms
+    # the one-call yardstick, never on the port's path: a grouped conv1d
+    # over inputs already in its layout, zt[c, b, j] = z_c[j, b] and
+    # w[2b + a, 0, u] = wa[a(2P+1) + u, b]; full f32 (no TF32)
+    taps = 2 * p + 1
+    zt = x[:(r_cnt + 2 * p) * hop].view(r_cnt + 2 * p, hop, 2) \
+        .permute(2, 1, 0).contiguous()
+    w = wa.view(2, taps, hop).permute(2, 0, 1).reshape(2 * hop, 1, taps) \
+        .contiguous()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        conv = torch.nn.functional.conv1d(zt, w, groups=hop)
+        conv_ms = _cuda_ms(
+            lambda: torch.nn.functional.conv1d(zt, w, groups=hop), 20)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    conv = conv.view(2, hop, 2, r_cnt).permute(3, 0, 2, 1) \
+        .reshape(r_cnt, 4 * hop)
+    cerr = float((conv - ref).abs().max())
+    _require(bool(torch.all((conv - ref).abs() <= 1e-4 + 2e-4 * ref.abs())),
+             ("conv1d yardstick outside rtol 2e-4 / atol 1e-4", cerr))
+    # bytes: the block and the taps in, a2 out; operations: the 4P
+    # non-zero multiply-adds a (row, lane)
+    nbytes = 4 * ((r_cnt + 2 * p) * hop * 2 + wa.numel() + r_cnt * 4 * hop)
+    bound, by, line = _roofline(ms, nbytes, r_cnt * hop * 4 * p * 2)
+    print(f"[P]   branch filter kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
+          f"(no yardstick), F.conv1d(groups=hop) {conv_ms:.4f} ms (max|err| "
+          f"vs plain {cerr}); {line}; whole analysis block (kernel + f32 "
+          f"DFT) {block_ms:.3f} ms")
+    return max(err, a2_err), ms, plain_ms, bound, by, conv_ms
+
+
+def phase_ab(old_root: str, rng, dev, n_car: int) -> None:
+    """[ab]: kernels V and P built from OLD_ROOT's sources and from this
+    checkout's, each checked against the plain version and timed by
+    CUDA-graph replay in turns old, new, new, old at the main path's
+    shapes (device times; same card, same call)."""
+    import ctypes
+
+    import torch
+
+    from gmr1_tpu_torch import kernels
+    from gmr1_tpu_torch.channelizer import pfb
+    from gmr1_tpu_torch.ops import conv as CV
+    from gmr1_tpu_torch.ops import viterbi as VT
+    out = kernels.BUILD_DIR / "ab"
+    out.mkdir(parents=True, exist_ok=True)
+    fns, procs = {}, {}
+    for side, root in (("old", old_root), ("new", os.path.dirname(
+            os.path.abspath(__file__)))):
+        for name in ("viterbi", "pfb"):
+            src = os.path.join(root, "gmr1_tpu_torch", "kernels", f"{name}.cu")
+            lib = out / f"{side}_{name}.so"
+            procs[side, name] = (lib, subprocess.Popen(
+                [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib), src],
+                stderr=subprocess.PIPE, text=True))
+    for (side, name), (lib, proc) in procs.items():
+        _, err = proc.communicate()
+        _require(proc.returncode == 0, (side, name, err[-2000:]))
+        sym, argtypes = kernels._ENTRY[name]
+        fns[side, name] = getattr(ctypes.CDLL(str(lib)), sym)
+        fns[side, name].argtypes = argtypes
+        fns[side, name].restype = ctypes.c_int
+
+    def turns(name, call, check):
+        got = {}
+        for side in ("old", "new", "new", "old"):
+            fn = fns[side, name]
+            _require(call(fn) == 0 and check(), (side, name))
+            got.setdefault(side, []).append(_graph_ms(lambda: call(fn)))
+        return " ".join(f"{k} {' '.join(f'{v:.4f}' for v in vs)} ms"
+                        for k, vs in got.items())
+
+    for code, t_steps, b, what in (
+            (CV.K5_12, 212, 6 * n_car, "CCCH"),
+            (CV.TCH3_K7, 48, 2 * n_car * F, "TCH3 speech"),
+            (CV.K5_12, 320, n_car * F, "FACCH9"),
+            (CV.K5_12, 484, n_car * F, "TCH9 9k6"),
+            (CV.K5_14, 96, n_car, "FACCH3"),
+            (CV.K5_12, 212, 1, "per-carrier BCCH/CCCH"),
+            (CV.K5_14, 96, 1, "per-carrier FACCH3"),
+            (CV.K5_12, 320, 1, "per-carrier FACCH9"),
+            (CV.K5_12, 484, 1, "per-carrier TCH9"),
+            (CV.TCH3_K7, 48, 2, "per-carrier speech")):
+        sym, sign, flush = _trellis_case(code, t_steps, b, rng, dev)
+        pb, pm = VT.decode_trellis_plain(sym, sign, flush)
+        bits = torch.empty((b, t_steps), dtype=torch.uint8, device=dev)
+        met = torch.empty((b,), dtype=torch.float32, device=dev)
+        line = turns("viterbi", lambda fn: fn(
+            sym.data_ptr(), sign.data_ptr(), bits.data_ptr(), met.data_ptr(),
+            b, t_steps, code.n, code.num_states, int(flush),
+            kernels.stream_ptr()),
+            lambda: bool(torch.equal(bits, pb) and torch.equal(met, pm)))
+        print(f"[ab] V {code.name} B={b} T={t_steps} ({what}): {line}")
+    for fs, need_nx in ((FS, False), (PATHS_FS, True)):
+        ana = pfb.Channelizer(fs, 1525e6 + 31250 * CENTER_ARFCN,
+                              need_nx=need_nx).analyzer
+        m, p, hop, r_cnt = ana.m, ana.p, ana.hop, 2500 * F
+        x = torch.as_tensor(rng.normal(size=(r_cnt * hop + p * m, 2))
+                            .astype(np.float32), device=dev)
+        wa = ana._tables(dev)[0]
+        ref = pfb.branch_filter_plain(x, wa, r_cnt, hop)
+        a2 = torch.empty_like(ref)
+        line = turns("pfb", lambda fn: fn(
+            x.data_ptr(), wa.data_ptr(), a2.data_ptr(), r_cnt, hop, 2 * p,
+            kernels.stream_ptr()), lambda: bool(torch.all(
+                (a2 - ref).abs() <= 1e-4 + 2e-4 * ref.abs())))
+        print(f"[ab] P M={m} P={p} R={r_cnt}: {line}")
 
 
 def main() -> int:
@@ -920,10 +1131,13 @@ def main() -> int:
     # ---- 3-5. kernels vs their plain versions ------------------------
     rng = np.random.default_rng(0x5EED)
     n_car = 2 * (1088 // 2 - 12)          # the slice's live carriers
-    v_err, v_ms, v_plain = phase_viterbi(rng, dev, n_car)
-    p_err, p_ms, p_plain = phase_pfb(rng, dev)
+    if sys.argv[1:2] == ["--ab"]:
+        phase_ab(sys.argv[2], rng, dev, n_car)
+        return 0
+    v_err, v_ms, v_plain, v_bound, v_by = phase_viterbi(rng, dev, n_car)
+    p_err, p_ms, p_plain, p_bound, p_by, p_conv = phase_pfb(rng, dev)
     p_err = max(p_err, phase_pfb(rng, dev, PATHS_FS, need_nx=True)[0])
-    a_err, a_ms, a_plain = phase_a5(rng, dev, n_car * F)
+    a_err, a_ms, a_plain, a_bound, a_by = phase_a5(rng, dev, n_car * F)
 
     # ---- 6-7. the per-carrier CLI and the wideband paths -------------
     by_path = {}
@@ -978,14 +1192,17 @@ def main() -> int:
         dict(name="viterbi", route="cuda",
              source="gmr1_tpu_torch/kernels/viterbi.cu",
              replaces="gmr1_tpu/ops/pallas_viterbi.py:152",
-             **per("viterbi"), max_abs_err=v_err, ms=v_ms, plain_ms=v_plain),
+             **per("viterbi"), max_abs_err=v_err, ms=v_ms, plain_ms=v_plain,
+             bound_ms=v_bound, bound_by=v_by, library_ms=None),
         dict(name="pfb_branch_filter", route="cuda",
              source="gmr1_tpu_torch/kernels/pfb.cu",
              replaces="gmr1_tpu/ops/pallas_pfb.py:109",
-             **per("pfb"), max_abs_err=p_err, ms=p_ms, plain_ms=p_plain),
+             **per("pfb"), max_abs_err=p_err, ms=p_ms, plain_ms=p_plain,
+             bound_ms=p_bound, bound_by=p_by, library_ms=p_conv),
         dict(name="a5", route="cuda", source="gmr1_tpu_torch/kernels/a5.cu",
              replaces="gmr1_tpu/ops/a5.py:148",
-             **per("a5"), max_abs_err=a_err, ms=a_ms, plain_ms=a_plain),
+             **per("a5"), max_abs_err=a_err, ms=a_ms, plain_ms=a_plain,
+             bound_ms=a_bound, bound_by=a_by, library_ms=None),
     ]
     print(card)
     print(json.dumps({"kernels": kern}))

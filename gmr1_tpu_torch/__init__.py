@@ -19,7 +19,21 @@ traffic channels.
                 their build
 
 Importing the package loads no kernel: each is built and loaded at its
-first launch on a CUDA tensor.
+first launch on a CUDA tensor.  The entry points run on the card unless
+the caller asks for the CPU (`device="cpu"`).
 """
 
+import torch
+
 __version__ = "0.1.0"
+
+
+def checked_device(device) -> torch.device:
+    """torch.device(device); a CUDA device on a machine without CUDA
+    raises instead of quietly running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r} was asked for, but "
+                           "torch.cuda.is_available() is false (pass "
+                           "device='cpu' to run on the CPU)")
+    return dev

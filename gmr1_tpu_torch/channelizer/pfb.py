@@ -29,7 +29,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import checked_device, kernels
 from ..ops import cplx
 from . import filters
 from .arfcn import BASE_BANDWIDTH, BASE_SYMRATE, Channel, align_freq
@@ -89,6 +89,9 @@ def dft_packed_slab(m: int, hop: int) -> np.ndarray:
     return out
 
 
+PFB_KERNEL_MAX_P = 24     # kernels/pfb.cu instantiates P = 1..24
+
+
 def branch_filter_plain(x, wa, r_cnt: int, hop: int):
     """Plain PyTorch branch filter (the kernel's reference):
     a2[r, c*2hop + a*hop + b] = sum_u wa[a(2P+1)+u, b] * x[(r+u)*hop + b, c].
@@ -114,7 +117,13 @@ def _branch_filter_cuda(x, wa, r_cnt: int, hop: int):
             or wa.shape != (2 * (p2 + 1), hop):
         raise ValueError(f"bad PFB shapes x {tuple(x.shape)} "
                          f"wa {tuple(wa.shape)} R={r_cnt} hop={hop}")
+    if not 1 <= p2 // 2 <= PFB_KERNEL_MAX_P or p2 % 2:
+        raise ValueError(f"the PFB kernel takes 1 <= P <= "
+                         f"{PFB_KERNEL_MAX_P} taps a branch, not {p2 / 2}")
     x, wa = x.contiguous(), wa.contiguous()
+    if x.data_ptr() % 8:
+        raise ValueError("the PFB kernel reads x as float2 rows: it must "
+                         "be 8-byte aligned")
     fn = kernels.library("pfb")
     a2 = torch.empty((r_cnt, 4 * hop), dtype=torch.float32, device=x.device)
     err = fn(x.data_ptr(), wa.data_ptr(), a2.data_ptr(), r_cnt, hop, p2,
@@ -425,7 +434,8 @@ class StreamPreResampler:
     P_MAX = 1 << 20     # period bound: integral-Hz rates stay tiny
 
     def __init__(self, rr: ArbResampler, n_out: int, pull,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
+        self.device = checked_device(device)
         p_out, k_in, w, b = rr.periodic_geometry()
         if p_out > self.P_MAX:
             raise ValueError(f"period {p_out} too large; use an "
@@ -434,7 +444,6 @@ class StreamPreResampler:
         self.k_span = w.shape[1]
         self.n_out = n_out
         self.nq = n_out // p_out + 2
-        self.device = torch.device(device)
         self._w_t = torch.as_tensor(w.T.copy(), device=self.device)
         self._pull = pull
         self._n = 0                  # on-grid samples produced

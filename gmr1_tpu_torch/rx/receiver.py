@@ -26,6 +26,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import checked_device
 from ..l1 import bcch, ccch, facch3, facch9, tch3, tch9
 from ..ops import a5
 from ..ops.interleave import InterleaverState
@@ -126,8 +127,8 @@ def facch3_ass_cmd_1_parse(l2) -> int:    # gmr1_rx.c:254-258
 class Receiver:
     """One carrier receiver over mmap'd captures (gmr1_rx main).
 
-    `device` is where each burst's math runs; "cuda" on a machine
-    without CUDA raises."""
+    `device` is where each burst's math runs: the card by default, and
+    without CUDA that raises."""
 
     def __init__(self, bcch_file: CFile, sps: int,
                  tch_file: CFile | None = None, kc: bytes | None = None,
@@ -135,11 +136,8 @@ class Receiver:
                  sink: gsmtap.GsmtapSink | None = None,
                  fcch_type: fcch.FcchBurst = fcch.FCCH,
                  verbose: bool = False,
-                 device: str | torch.device = "cpu"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' was asked for, but "
-                               "torch.cuda.is_available() is false")
+                 device: str | torch.device = "cuda"):
+        self.device = checked_device(device)
         self.bcch = bcch_file
         self.tch = tch_file
         self.tch_csd = tch_csd_file

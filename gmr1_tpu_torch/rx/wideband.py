@@ -55,6 +55,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import checked_device
 from ..channelizer.arfcn import _BASES, BASE_BANDWIDTH
 from ..channelizer.pfb import Channelizer, StreamPreResampler
 from ..l1 import bcch, ccch, facch3, facch9, tch3, tch9
@@ -274,9 +275,9 @@ class WidebandReceiver:
 
     `wb` is planar float32 (N, 2), complex64 (N,) host samples or a
     `cfile.SampleSource`.  `device` is where the streams live and every
-    phase runs; "cuda" on a machine without CUDA raises.  The remaining
-    arguments are the JAX receiver's; `mesh` and `h2d_dtype` accept only
-    their defaults (None, "float32").
+    phase runs: the card by default, and without CUDA that raises.  The
+    remaining arguments are the JAX receiver's; `mesh` and `h2d_dtype`
+    accept only their defaults (None, "float32").
     """
 
     def __init__(self, wb, samp_rate: float, center_freq: float,
@@ -287,7 +288,7 @@ class WidebandReceiver:
                  band: str = "L", uplink: bool = False,
                  verbose: bool = False, mesh=None, beams: int = 1,
                  wide_channels=None, h2d_dtype: str = "float32",
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         unported = [name for name, off in (
             ("mesh", mesh is not None),
             ("h2d_dtype", h2d_dtype != "float32")) if off]
@@ -295,10 +296,7 @@ class WidebandReceiver:
             raise NotImplementedError(
                 f"not ported: {', '.join(unported)} (single device, float32 "
                 "ingest only)")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' was asked for, but "
-                               "torch.cuda.is_available() is false")
+        self.device = checked_device(device)
         self.sps = sps
         self.kc = np.frombuffer(kc, np.uint8) if kc else np.zeros(8, np.uint8)
         self.sink = sink

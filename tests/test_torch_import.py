@@ -7,6 +7,7 @@
     kernel without nvcc raises rather than falling back.
 """
 
+import inspect
 import os
 import pathlib
 import subprocess
@@ -71,6 +72,25 @@ def test_cuda_receiver_raises_without_cuda():
                          1525e6 + 31250.0 * 500, device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         Receiver(None, 4, device="cuda")
+
+
+def test_entry_points_default_to_cuda():
+    """The receivers and the streaming pre-resampler run on the card
+    unless told otherwise: without CUDA their default device raises
+    instead of running on the CPU."""
+    for cls in (WidebandReceiver, Receiver, pfb.StreamPreResampler):
+        assert inspect.signature(cls).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    with pytest.raises(RuntimeError, match="cuda"):
+        WidebandReceiver(np.zeros((16, 2), np.float32), 500e3,
+                         1525e6 + 31250.0 * 500)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Receiver(None, 4)
+    rr = pfb.Channelizer(900e3, 1525e6 + 31250.0 * 500).pre_resamp
+    with pytest.raises(RuntimeError, match="cuda"):
+        pfb.StreamPreResampler(rr, 1000,
+                               lambda n: np.zeros((0, 2), np.float32))
 
 
 def test_cli_device_defaults_to_cuda(tmp_path):

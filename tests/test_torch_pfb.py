@@ -78,6 +78,113 @@ def test_branch_filter_matches_pallas_interpret(rng, m, p, r_cnt):
                                   dft_j[:, :hop].reshape(4 * hop, 2 * m))
 
 
+REAL_GEOMS = [(34e6, False), (30.72e6, True)]    # M=1088/P=10, M=984/P=19
+
+
+def compact_taps(wa):
+    """The non-zero taps of a slab_weights table, as kernels/pfb.cu loads
+    them into registers: (wc (2, P, hop), off (2, hop)) with
+
+      wa[a*(2P+1) + off[a, b] + 2k, b] = wc[a, k, b],  off = (1 - a) + (b == 0)
+
+    and every other entry of wa zero (s = u+1 of half a has a's parity
+    for lanes b >= 1, s = u for lane 0).  `wa` is a tensor."""
+    taps = wa.shape[0] // 2
+    p, hop = taps // 2, wa.shape[1]
+    dev = wa.device
+    lanes = torch.arange(hop, device=dev)
+    off = (1 - torch.arange(2, device=dev))[:, None] + (lanes == 0)[None, :]
+    rows = (torch.arange(2, device=dev)[:, None, None] * taps
+            + off[:, None, :]
+            + 2 * torch.arange(p, device=dev)[None, :, None])
+    return wa[rows, lanes], off
+
+
+def real_wa(fs, need_nx):
+    ana = pfb.Channelizer(fs, CENTER, need_nx=need_nx).analyzer
+    return ana, torch.from_numpy(ana.wa_np)
+
+
+@pytest.mark.parametrize("fs,need_nx", REAL_GEOMS, ids=["m1088", "m984"])
+def test_compact_taps_hold_every_nonzero_tap(fs, need_nx):
+    """kernels/pfb.cu's tap rule: scattering the compact taps back gives
+    slab_weights exactly (so every other entry is zero), for lane 0 and
+    lanes >= 1, and the zero pattern is the JAX table's."""
+    ana, wa = real_wa(fs, need_nx)
+    assert (ana.m, ana.p) == ((1088, 10) if not need_nx else (984, 19))
+    wc, off = compact_taps(wa)
+    p, hop = ana.p, ana.hop
+    assert wc.shape == (2, p, hop)
+    np.testing.assert_array_equal(off[:, 0].numpy(), [2, 1])
+    np.testing.assert_array_equal(off[:, 1:].numpy(),
+                                  np.array([[1], [0]]) * np.ones(hop - 1))
+    dense = torch.zeros_like(wa)
+    lanes = torch.arange(hop)
+    for a in (0, 1):
+        for k in range(p):
+            dense[a * (2 * p + 1) + off[a] + 2 * k, lanes] = wc[a, k]
+    np.testing.assert_array_equal(dense.numpy(), wa.numpy())
+    wa_j = pallas_pfb.slab_weights(ana.h_poly, ana.m, p, hop)[:, :hop]
+    np.testing.assert_array_equal(wa_j != 0, dense.numpy() != 0)
+
+
+def fir_compact(x, wc, off, r_cnt, hop):
+    """The branch filter over the compact taps only, in the dense loop's
+    order of u."""
+    p = wc.shape[1]
+    z = x[:(r_cnt + 2 * p) * hop].reshape(r_cnt + 2 * p, hop, 2)
+    lanes = torch.arange(hop)
+    out = x.new_zeros((r_cnt, 2, 2, hop))
+    for a in (0, 1):
+        for k in range(p):
+            rows = torch.arange(r_cnt)[:, None] + off[a][None, :] + 2 * k
+            out[:, :, a] += (wc[a, k][None, :, None]
+                             * z[rows, lanes]).transpose(1, 2)
+    return out.reshape(r_cnt, 4 * hop)
+
+
+@pytest.mark.parametrize("fs,need_nx", REAL_GEOMS, ids=["m1088", "m984"])
+def test_compact_fir_equals_plain(rng, fs, need_nx):
+    """Dropping the zero taps changes no sum: the FIR over the compact
+    table equals branch_filter_plain exactly."""
+    ana, wa = real_wa(fs, need_nx)
+    r_cnt = 12
+    x = torch.from_numpy(rng.normal(size=((r_cnt + 2 * ana.p) * ana.hop, 2))
+                         .astype(np.float32))
+    wc, off = compact_taps(wa)
+    np.testing.assert_array_equal(
+        fir_compact(x, wc, off, r_cnt, ana.hop).numpy(),
+        pfb.branch_filter_plain(x, wa, r_cnt, ana.hop).numpy())
+
+
+@pytest.mark.parametrize("p", [1, 10, 19, pfb.PFB_KERNEL_MAX_P])
+@pytest.mark.parametrize("n_out", [1, 16, 17, 455, 464])
+def test_kernel_ring_schedule(p, n_out):
+    """Model of kernels/pfb.cu's tile ring (128 rows of 16-row tiles,
+    seven tiles issued ahead, cp.async.wait_group 6 - H): every ring row
+    that a stored output reads, lane 0's shifted column included, belongs
+    to a tile whose group was waited for and that no later load
+    overwrote."""
+    tr, ring, ahead, rb = 16, 128, 7, 8
+    halo = -(-2 * p // tr)
+    assert ahead >= halo + 1
+    t_in, t_out = -(-(n_out + 2 * p) // tr), -(-n_out // tr)
+    slot = {}                                   # ring tile slot -> tile
+    for t in range(ahead):
+        if t < t_in:
+            slot[t % (ring // tr)] = t
+    for k in range(t_out):
+        landed = k + halo            # groups done after the wait
+        if k + ahead < t_in:
+            slot[(k + ahead) % (ring // tr)] = k + ahead
+        for o in range(k * tr, min((k + 1) * tr, n_out)):   # stored rows
+            for d in (0, 1):         # lanes >= 1, lane 0
+                for u in range(2 * p):                # u = (1 - a) + 2k
+                    tile = (o + d + u) // tr
+                    assert tile <= landed and tile < t_in
+                    assert slot[((o + d + u) % ring) // tr] == tile
+
+
 def test_analyzer_from_taps_and_chunked_call(rng):
     m = 16
     taps = rng.normal(size=5 * m - 3).astype(np.float32)
@@ -118,7 +225,8 @@ def test_off_grid_rate_is_refused():
     assert tz.pre_resamp is not None and tz.pre_resamp.ratio_frac is None
     with pytest.raises(ValueError):
         pfb.StreamPreResampler(tz.pre_resamp, 1000,
-                               lambda n: np.zeros((0, 2), np.float32))
+                               lambda n: np.zeros((0, 2), np.float32),
+                               device="cpu")
 
 
 def test_streamed_ingest_matches_jax(rng):

@@ -118,6 +118,96 @@ def test_depuncture_decode_distance(rng):
         np.asarray(j_vit.distance(jc, punct, np.asarray(want[0]), keep)))
 
 
+def warp_model(sym, sign, flush):
+    """numpy model of kernels/viterbi.cu's warp-synchronous decoder
+    (S <= 64), lane for lane: a lane holds states lam and lam + S/2 of
+    burst lane // (S/2); the four predecessor metrics come from lanes
+    srcA and srcB (the shuffles); each step's decisions are two 32-bit
+    ballot words; tail-biting takes the first maximum by the kernel's
+    butterfly; the traceback reads the words.  Returns (bits, metric)."""
+    b_cnt, t_steps, n = sym.shape
+    s_cnt = sign.shape[0] // 2
+    lps = s_cnt // 2                       # lanes a burst
+    n_w = -(-b_cnt // (32 // lps))         # warps
+    lane = np.arange(32)
+    g, lam = lane // lps, lane % lps
+    burst = np.arange(n_w)[:, None] * (32 // lps) + g[None, :]   # (W, 32)
+    x = np.concatenate([sym, np.zeros((n_w * 32 // lps - b_cnt, t_steps, n),
+                                      np.float32)])[burst]  # (W, 32, T, n)
+    g_a0, g_a1 = sign[lam], sign[s_cnt + lam]
+    g_b0, g_b1 = sign[lam + lps], sign[s_cnt + lam + lps]
+    m_a = np.where(flush & (lam != 0), np.float32(-1e30),
+                   np.float32(0)) * np.ones((n_w, 1), np.float32)
+    m_b = np.full((n_w, 32), -1e30 if flush else 0, np.float32)
+    src_a = g * lps + (lam >> 1)
+    src_b = g * lps + lps // 2 + (lam >> 1)
+    words = np.zeros((n_w, t_steps, 2), np.uint64)
+    for t in range(t_steps):
+        v = x[:, :, t]
+        c0a = m_a[:, src_a] + (v * g_a0).sum(-1, dtype=np.float32)
+        c1a = m_b[:, src_a] + (v * g_a1).sum(-1, dtype=np.float32)
+        c0b = m_a[:, src_b] + (v * g_b0).sum(-1, dtype=np.float32)
+        c1b = m_b[:, src_b] + (v * g_b1).sum(-1, dtype=np.float32)
+        d_a, d_b = c1a > c0a, c1b > c0b
+        m_a, m_b = np.where(d_a, c1a, c0a), np.where(d_b, c1b, c0b)
+        for w, d in ((0, d_a), (1, d_b)):          # __ballot_sync
+            words[:, t, w] = (d.astype(np.uint64) << lane.astype(np.uint64)
+                              ).sum(-1)
+    if flush:
+        best = m_a[:, g * lps]
+        st = np.zeros((n_w, 32), np.int64)
+    else:
+        best = np.maximum(m_a, m_b)
+        st = np.where(m_b > m_a, lam + lps, lam) * np.ones((n_w, 1), np.int64)
+        off = lps // 2
+        while off:                                  # __shfl_xor_sync
+            ob, os_ = best[:, lane ^ off], st[:, lane ^ off]
+            take = (ob > best) | ((ob == best) & (os_ < st))
+            best, st = np.where(take, ob, best), np.where(take, os_, st)
+            off //= 2
+    bits = np.zeros((n_w, 32, t_steps), np.uint8)
+    for t in range(t_steps - 1, -1, -1):
+        bits[:, :, t] = st & 1
+        word = np.where(st < lps, words[:, t, 0][:, None],
+                        words[:, t, 1][:, None])
+        took = (word >> (g * lps + (st & (lps - 1))).astype(np.uint64)) & 1
+        st = (st >> 1) | (took.astype(np.int64) * lps)
+    keep = (lam == 0)
+    return (bits[:, keep].reshape(-1, t_steps)[:b_cnt],
+            best[:, keep].reshape(-1)[:b_cnt])
+
+
+WARP_CASES = [   # (class, B, T): B odd and not a multiple of the bursts a
+    (CLASSES[0], 1, 48), (CLASSES[0], 3, 37), (CLASSES[0], 33, 70),
+    (CLASSES[1], 5, 33), (CLASSES[2], 3, 45), (CLASSES[2], 2, 96),
+    (("k6_14", 6, j_conv.K6_14.polys, j_conv.TERM_FLUSH), 3, 70),
+]                # warp, T not a multiple of 32
+
+
+@pytest.mark.parametrize("cls,b,t_steps", WARP_CASES,
+                         ids=[f"{c[0]}-B{b}-T{t}" for c, b, t in WARP_CASES])
+@pytest.mark.parametrize("zero", [False, True], ids=["noisy", "tied"])
+def test_warp_layout_matches_plain(rng, cls, b, t_steps, zero):
+    """The warp kernel's lane layout, shuffles, ballot words, first-max
+    butterfly and word traceback give decode_trellis_plain's bits and
+    metrics exactly, flush and tail-biting, on noisy bursts and on
+    all-zero ones (every metric tied)."""
+    jc, tc = codes(*cls)
+    for term in (j_conv.TERM_FLUSH, j_conv.TERM_TAIL_BITING):
+        jc_t = j_conv.ConvCode(jc.name, jc.k, jc.polys, term)
+        in_len = t_steps - (jc.k - 1 if term == j_conv.TERM_FLUSH else 0)
+        soft = noisy_sbits(rng, jc_t, b, in_len)
+        if zero:
+            soft[:] = 0
+        _, _, sign = j_vit._acs_tables(jc_t)
+        sym = soft.reshape(b, t_steps, jc.n)
+        sign2 = sign.reshape(-1, jc.n).astype(np.float32)
+        flush = term == j_conv.TERM_FLUSH
+        want = t_vit.decode_trellis_plain(torch.from_numpy(sym),
+                                          torch.from_numpy(sign2), flush)
+        assert_same(warp_model(sym, sign2, flush), want)
+
+
 def test_cpu_decode_does_not_launch_kernel(rng):
     jc, tc = codes(*CLASSES[0])
     before = t_vit.decode_trellis.launches

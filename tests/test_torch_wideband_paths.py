@@ -67,7 +67,8 @@ def test_pre_resampler_blocks_match(rng, fs):
                                   np.asarray(jz.analyzer.h_poly))
     raw = rng.normal(size=(47000, 2)).astype(np.float32)
     js = j_pfb.StreamPreResampler(jz.pre_resamp, 12000, puller(raw))
-    ts = t_pfb.StreamPreResampler(tz.pre_resamp, 12000, puller(raw))
+    ts = t_pfb.StreamPreResampler(tz.pre_resamp, 12000, puller(raw),
+                                  device="cpu")
     for _ in range(5):
         (a, na), (b, nb) = js.produce_block(), ts.produce_block()
         assert nb == na

@@ -1,7 +1,7 @@
 """Smoke test of the PyTorch port (gmr1_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ab OLD    # kernels V and P of another checkout
+    python3 chip_smoke.py --ab OLD    # kernels V, P and A5 of another checkout
                                       # (OLD/gmr1_tpu_torch/kernels) beside
                                       # this one's, and nothing else
 
@@ -37,10 +37,14 @@ result line):
                   layout; checked to the same tolerance, never on the
                   port's path).
   5. kernel A5    A5/1 keystream kernel vs its plain version at the
-                  receiver's NT9 batch (8512 frame numbers, 658 bits) and
-                  at batch 1 for the per-carrier receiver's 96, 208 and
-                  658 bits, and vs the a5.c transcription `keystream_np`:
-                  bit-exact.
+                  receiver's NT9 batch (8512 frame numbers, 658 bits,
+                  downlink and uplink), at batches of 33 and 8513 (off a
+                  warp, off a CTA), with a random key and one of eight
+                  distinct bytes, and at batch 1 for the per-carrier
+                  receiver's 96, 208 and 658 bits, and vs the a5.c
+                  transcription `keystream_np`: bit-exact.  Timed eager
+                  and by CUDA-graph replay (dl only, dl + ul, batch 1)
+                  beside the byte bound and the serial-chain estimate.
   6. carrier      the per-carrier entry point: a one-carrier capture at
                   sps 4 with the e2e story (FCCH, SI1, IMM.ASS, speech,
                   FACCH3 ASS.CMD.1, DKABs, FACCH9, ciphered 9k6 CSD,
@@ -71,8 +75,24 @@ result line):
                   bit-exact against the synthesis truth, speech, DKAB,
                   CSD order and TCH3 teardown checked per carrier, and
                   all three kernels launched by the receiver.
+  9. l1           one DC12 and one RACH burst a grid carrier (1064
+                  each; some RACH decoded with a wrong SB mask) encoded
+                  on the card, noised, decoded on the card (DC12: kernel
+                  V's K=9 tail-biting form), and 5 chained TCH9 2k4 and
+                  4k8 bursts a carrier: bursts, bits, CRC flags, metrics
+                  and rings equal the port's CPU run; kernel V timed at
+                  the DC12 shape beside its bound.
+ 10. codec        the AMBE vocoder: decode_frames at bench_codec.py's
+                  shape (4096 channels x 50 random frames, seed 11) on
+                  the card, frames/s and real-time voice channels; 8 of
+                  those channels and tests/test_codec.py's constant-
+                  pitch, silence, tone and batched vectors on the card
+                  within 1 LSB of the port's CPU PCM on >= 99.9 % of
+                  samples; `python -m gmr1_tpu_torch.codec` turns the
+                  [carrier] phase's --speech-out file into a WAV (header,
+                  160 samples a frame, PCM against the CPU).
 
-Kernel launches are counted per path (carrier, paths, slice): each
+Kernel launches are counted per path (carrier, paths, slice, l1): each
 count is set to 0 just before the path runs and read just after, and a
 path fails if a kernel it runs was never launched.  The last three lines
 are the card's name and power limit, a JSON object with each kernel's
@@ -496,9 +516,9 @@ def verify_carrier(frames, csd: bytes, speech: bytes, truth) -> dict:
     return dict(got, speech=len(truth["speech"]), csd=len(pays))
 
 
-def phase_carrier(tmp: str, card: str) -> dict:
+def phase_carrier(tmp: str, card: str) -> tuple[dict, str]:
     """[carrier]: the per-carrier CLI on the card; returns its kernel
-    launches."""
+    launches and the path of its --speech-out file."""
     import torch
 
     from gmr1_tpu_torch.channelizer.pfb import branch_filter
@@ -543,7 +563,7 @@ def phase_carrier(tmp: str, card: str) -> dict:
     for name in ("viterbi", "a5"):
         _require(launches[name] > 0,
                  f"the per-carrier receiver never launched the {name} kernel")
-    return launches
+    return launches, out["speech"]
 
 
 # --------------------------------------------------------------------------
@@ -737,6 +757,280 @@ def phase_paths(tmp: str, card: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# [l1]: the last L1 coders (xch_dc12 on kernel V's K=9 form, rach) and
+# TCH9 2k4/4k8, one burst a grid carrier, on the card against the CPU
+# --------------------------------------------------------------------------
+
+def _noisy(bits: np.ndarray, rng, sigma: float) -> np.ndarray:
+    """Integer soft bits (positive = bit 0) of hard bits plus noise."""
+    s = np.where(bits > 0, -100.0, 100.0) + rng.normal(0, sigma, bits.shape)
+    return np.clip(np.round(s), -127, 127).astype(np.float32)
+
+
+def phase_l1(rng, dev, n_car: int) -> dict:
+    """[l1]: n_car DC12 and n_car RACH bursts (random L2, random SB
+    masks, every 7th RACH decoded with a wrong mask) encoded on the card,
+    noised on the host and decoded on the card; then F=5 chained TCH9
+    2k4 and 4k8 bursts a carrier through the inter-burst interleaver.
+    Bursts, bits, CRC flags, metrics and rings must equal the port's CPU
+    decode; payloads must come back.  Returns the kernel launches of the
+    card's run."""
+    import torch
+
+    from gmr1_tpu_torch.channelizer.pfb import branch_filter
+    from gmr1_tpu_torch.l1 import rach, tch9, xch_dc12
+    from gmr1_tpu_torch.ops import a5 as A5
+    from gmr1_tpu_torch.ops import interleave as IL
+    from gmr1_tpu_torch.ops import scramble as SC
+    from gmr1_tpu_torch.ops import viterbi as VT
+
+    def same(what, card, cpu):
+        for k, (g, w) in enumerate(zip(card, cpu)):
+            _require(torch.equal(g.cpu(), w), (what, "output", k))
+
+    l2 = rng.integers(0, 256, (n_car, 24), dtype=np.uint8)
+    pk = rng.integers(0, 256, (n_car, 18), dtype=np.uint8)
+    pk[:, 17] &= 0xE0                                   # 139 message bits
+    sb = rng.integers(1, 256, n_car).astype(np.uint8)
+    masks = sb.copy()
+    masks[::7] ^= 0x5A                                  # wrong SB masks
+    modes = (tch9.MODE_2K4, tch9.MODE_4K8)
+    pays = {m.name: rng.integers(0, 256, (5, n_car, m.l2_bytes),
+                                 dtype=np.uint8) for m in modes}
+
+    def tch9_bursts(mode, device):
+        il = IL.InterleaverState(
+            buf=torch.zeros((n_car, 3, 648), dtype=torch.uint8,
+                            device=device),
+            n=torch.zeros(n_car, dtype=torch.int64, device=device))
+        out = []
+        for f in range(5):
+            il, e = tch9.encode(torch.as_tensor(pays[mode.name][f],
+                                                device=device), mode,
+                                np.zeros((n_car, 10), np.uint8),
+                                np.zeros((n_car, 4), np.uint8), il)
+            out.append(e)
+        return torch.stack(out)
+
+    def dec_ring(device):
+        return IL.InterleaverState(
+            buf=torch.zeros((n_car, 3, 648), dtype=torch.float32,
+                            device=device),
+            n=torch.zeros(n_car, dtype=torch.int64, device=device))
+
+    # encode on the card, against the CPU
+    e_dc = xch_dc12.encode(torch.as_tensor(l2, device=dev))
+    e_ra = rach.encode(torch.as_tensor(pk, device=dev),
+                       torch.as_tensor(sb, device=dev))
+    e_t9 = {m.name: tch9_bursts(m, dev) for m in modes}
+    _require(torch.equal(e_dc.cpu(), xch_dc12.encode(torch.as_tensor(l2))),
+             "xch_dc12 encode")
+    _require(torch.equal(e_ra.cpu(), rach.encode(torch.as_tensor(pk),
+                                                 torch.as_tensor(sb))),
+             "rach encode")
+    for m in modes:
+        _require(torch.equal(e_t9[m.name].cpu(), tch9_bursts(m, "cpu")),
+                 ("tch9 encode", m.name))
+    s_dc = _noisy(e_dc.cpu().numpy(), rng, 60.0)
+    s_ra = _noisy(e_ra.cpu().numpy(), rng, 60.0)
+    s_t9 = {k: _noisy(v.cpu().numpy(), rng, 60.0) for k, v in e_t9.items()}
+
+    def run(device):
+        out = dict(dc12=xch_dc12.decode(torch.as_tensor(s_dc, device=device)),
+                   rach=rach.decode(torch.as_tensor(s_ra, device=device),
+                                    torch.as_tensor(masks, device=device)))
+        for m in modes:
+            il, *rest = tch9.decode_frames(
+                torch.as_tensor(s_t9[m.name], device=device), m,
+                dec_ring(device))
+            out[m.name] = (il.buf, il.n, *rest)
+        return out
+
+    VT.decode_trellis.launches = branch_filter.launches = 0
+    A5.keystream.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = run(dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(viterbi=VT.decode_trellis.launches,
+                    pfb=branch_filter.launches, a5=A5.keystream.launches)
+    cpu = run("cpu")
+    for k in card:
+        same(k, card[k], cpu[k])
+    l2_d, bad_d, _ = cpu["dc12"]
+    ok_dc = ~bad_d.bool()
+    _require(torch.equal(l2_d[ok_dc], torch.as_tensor(l2)[ok_dc])
+             and int(ok_dc.sum()) > 0.9 * n_car, ("DC12 payloads",
+                                                  int(ok_dc.sum())))
+    pk_r, bad_r, _ = cpu["rach"]
+    wrong = torch.as_tensor(masks != sb)
+    ok_r = (bad_r == 0).all(dim=-1) & ~wrong
+    _require(torch.equal(pk_r[ok_r], torch.as_tensor(pk)[ok_r])
+             and int(ok_r.sum()) > 0.8 * n_car
+             and bool(bad_r[wrong, 0].all()), ("RACH", int(ok_r.sum())))
+    t9_ok = {}
+    for m in modes:
+        got = cpu[m.name][2]                 # l2 (F, C, bytes): frame f-2
+        hit = (got[2:] == torch.as_tensor(pays[m.name][:3])).all(dim=-1)
+        t9_ok[m.name] = int(hit.sum())
+        _require(t9_ok[m.name] > 0.9 * 3 * n_car, (m.name, t9_ok[m.name]))
+    print(f"[l1] {n_car} DC12 + {n_car} RACH bursts + 5 x {n_car} TCH9 "
+          f"2k4 and 4k8 bursts decoded on the card in {wall * 1e3:.1f} ms "
+          f"({VT.decode_trellis.launches} kernel V launches); bursts, bits, "
+          f"CRC flags, metrics and rings equal the CPU's; DC12 CRC pass "
+          f"{int(ok_dc.sum())}, RACH pass {int(ok_r.sum())} (wrong SB mask "
+          f"on {int(wrong.sum())}, all refused), TCH9 payloads back 2 "
+          f"bursts later: " + ", ".join(f"{k} {v}/{3 * n_car}"
+                                        for k, v in t9_ok.items()))
+    _require(launches["viterbi"] > 0, "[l1] never launched kernel V")
+    # kernel V at the K=9 tail-biting shape of this decode
+    code = xch_dc12.CODE
+    ep = SC.scramble_sbit(torch.as_tensor(s_dc, device=dev))
+    sym = VT.depuncture(IL.deinterleave_intra(ep, xch_dc12.IL_N),
+                        xch_dc12._keep_idx(),
+                        code.out_len(xch_dc12.CONV_LEN)).reshape(
+        n_car, xch_dc12.CONV_LEN, code.n)
+    sign = torch.as_tensor(VT._acs_tables(code)[2].reshape(-1, code.n),
+                           device=dev)
+    ms = _cuda_ms(lambda: VT.decode_trellis(sym, sign, False), 20)
+    dev_ms = _graph_ms(lambda: VT.decode_trellis(sym, sign, False))
+    plain_ms = _cuda_ms(lambda: VT.decode_trellis_plain(sym, sign, False), 1)
+    print(f"[l1] kernel V at the DC12 shape {code.name} B={n_car} "
+          f"T={xch_dc12.CONV_LEN} n={code.n} S={code.num_states}:")
+    _trellis_line("[l1]  ", code, n_car, xch_dc12.CONV_LEN, ms, dev_ms,
+                  plain_ms)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# [codec]: the AMBE vocoder
+# --------------------------------------------------------------------------
+
+CODEC_CHANNELS, CODEC_FRAMES = 4096, 50      # bench_codec.py's shape, seed 11
+
+
+def _speech_frames(rng, n: int, pitch: int = 96) -> np.ndarray:
+    """tests/test_codec.py's speech vectors: constant pitch (L=39),
+    pitch-interpolation rule 0, the rest random."""
+    fr = rng.integers(0, 256, size=(n, 10), dtype=np.uint8)
+    fr[:, 0] = (pitch << 1) | (fr[:, 0] & 1)
+    fr[:, 6] &= ~0xC0 & 0xFF
+    return fr
+
+
+def _tone_frame(rng, code: int, sel: int = 3, ampl: int = 200) -> np.ndarray:
+    """tests/test_codec.py's tone frame."""
+    fr = rng.integers(0, 256, size=10, dtype=np.uint8)
+    fr[0] = 0xFC | sel
+    fr[1] = ampl
+    fr[2:8] = code
+    return fr
+
+
+def phase_codec(tmp: str, card: str, speech_path: str, dev,
+                c_cnt: int = CODEC_CHANNELS, t_cnt: int = CODEC_FRAMES
+                ) -> None:
+    """[codec]: decode_frames at bench_codec.py's shape on the card
+    (frames/s, real-time voice channels); 8 of those channels and
+    tests/test_codec.py's constant-pitch, silence-mix, tone and batched
+    vectors on the card against the port on the CPU (within 1 LSB on >=
+    99.9 % of samples); `python -m gmr1_tpu_torch.codec` turning the
+    [carrier] phase's --speech-out file into a WAV on the card."""
+    import torch
+
+    from gmr1_tpu_torch import codec
+    from gmr1_tpu_torch.codec.__main__ import main as codec_main
+    from gmr1_tpu_torch.codec.__main__ import wav_header
+    frames = np.random.default_rng(11).integers(0, 256, (c_cnt, t_cnt, 10),
+                                                dtype=np.uint8)
+    fr = torch.as_tensor(frames, device=dev)
+    st = codec.init((c_cnt,), device=dev)
+    codec.decode_frames(st, fr[:, :2])               # first-call set-up
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        _, pcm = codec.decode_frames(st, fr)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    _require(pcm.shape == (c_cnt, t_cnt, 160) and pcm.dtype == torch.int16
+             and bool(pcm.ne(0).any()), ("codec output", tuple(pcm.shape)))
+    fps = [c_cnt * t_cnt / w for w in walls]
+    print(f"[codec] decode_frames {c_cnt} channels x {t_cnt} frames on the "
+          f"card: {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms = "
+          f"{', '.join(f'{f:.0f}' for f in fps)} frames/s = "
+          f"{', '.join(f'{f / 50:.0f}' for f in fps)} real-time voice "
+          f"channels ({card})")
+    n_dev = 0
+    if dev.type == "cuda":                    # the CPU rehearsal skips it
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            codec.decode_frames(st, fr[:, :2])
+            torch.cuda.synchronize()
+        n_dev = sum(e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+    print(f"[codec] eager device operations a frame (profiler, kernels and "
+          f"copies): {n_dev / 2:.0f}" if n_dev else
+          "[codec] eager launches a frame: not measured (the profiler "
+          "recorded no device events)")
+
+    rng = np.random.default_rng(0x6D31)
+    silence = _speech_frames(rng, 12)
+    silence[3, 0], silence[7, 0] = 0xF8, 0xFA
+    vectors = [("bench channels 0-7", frames[:8], (8,)),
+               ("speech, pitch 96", _speech_frames(rng, 25), ()),
+               ("silence mix", silence, ()),
+               ("batched, pitch 96/110",
+                np.stack([_speech_frames(rng, 8),
+                          _speech_frames(rng, 8, pitch=110)]), (2,))]
+    vectors += [(f"tone 0x{c:02X}",
+                 np.stack([_tone_frame(rng, c, sel) for sel in (3, 2, 1)]),
+                 ()) for c in (0x20, 0x85, 0x91, 0xA1, 0xFF)]
+    n_all = n_close = 0
+    for name, f, batch in vectors:
+        _, g = codec.decode_frames(codec.init(batch, device=dev),
+                                   torch.as_tensor(f, device=dev))
+        _, c = codec.decode_frames(codec.init(batch, device="cpu"),
+                                   torch.as_tensor(f))
+        d = (g.cpu().to(torch.int64) - c.to(torch.int64)).abs()
+        n_all += d.numel()
+        n_close += int((d <= 1).sum())
+        print(f"[codec] {name}: card vs CPU max |diff| {int(d.max())} LSB, "
+              f"{float((d > 1).float().mean()):.5f} of samples > 1 LSB")
+        if name.startswith("bench"):              # batch size 4096 vs 8
+            d = (pcm[:8].cpu().to(torch.int64) - c.to(torch.int64)).abs()
+            n_all += d.numel()
+            n_close += int((d <= 1).sum())
+            print(f"[codec]   the same channels inside the {c_cnt}-channel "
+                  f"batch vs CPU: max |diff| {int(d.max())} LSB")
+    print(f"[codec] card vs CPU: {n_close / n_all:.5f} of {n_all} samples "
+          "within 1 LSB (limit 0.999)")
+    _require(n_close >= 0.999 * n_all, ("codec card vs CPU", n_close, n_all))
+
+    with open(speech_path, "rb") as fh:
+        raw = fh.read()
+    n_fr = len(raw) // 10
+    out = os.path.join(tmp, "speech.wav")
+    rc = codec_main([speech_path, out, "--device", str(dev)])
+    with open(out, "rb") as fh:
+        wav = fh.read()
+    _require(rc == 0 and n_fr > 0 and wav[:44] == wav_header(160 * n_fr)
+             and len(wav) == 44 + 320 * n_fr, ("codec CLI", rc, n_fr,
+                                                len(wav)))
+    _, ref = codec.decode_frames(codec.init((), device="cpu"), torch.as_tensor(
+        np.frombuffer(raw[:10 * n_fr], np.uint8).reshape(n_fr, 10).copy()))
+    d = np.abs(np.frombuffer(wav[44:], "<i2").astype(np.int64)
+               - ref.numpy().reshape(-1).astype(np.int64))
+    _require(np.mean(d <= 1) >= 0.999, ("codec CLI PCM", int(d.max())))
+    print(f"[codec] python -m gmr1_tpu_torch.codec {os.path.basename(speech_path)}"
+          f" speech.wav --device {dev}: {n_fr} frames -> {160 * n_fr} "
+          f"samples, WAV header correct, max |diff| vs CPU {int(d.max())} "
+          "LSB")
+
+
 def _cuda_ms(fn, iters: int) -> float:
     """Eager time: CUDA events around `iters` calls back to back (the
     host's launch cost shows where it exceeds the device time)."""
@@ -816,6 +1110,27 @@ def _trellis_case(code, t_steps: int, b: int, rng, dev, zero=False):
             code.term == CV.TERM_FLUSH)
 
 
+def _trellis_line(tag: str, code, b: int, t_steps: int, ms: float,
+                  dev_ms: float, plain_ms: float) -> tuple[float, str]:
+    """Print kernel V's eager and device time at one shape beside its
+    bound and serial-chain estimate; returns (bound ms, what sets it)."""
+    s_cnt, n = code.num_states, code.n
+    # bytes: sym in, bits and metric out; operations: two adds and a
+    # compare a state a step, and the 2^n distinct branch metrics
+    nbytes = b * t_steps * (4 * n + 1) + 4 * b + 8 * s_cnt * n
+    nops = b * t_steps * (3 * s_cnt + 2 * n * 2 ** n)
+    # one step forward (add, max) and one back (shift, or): 16 clocks
+    chain = t_steps * 16 / BOOST_HZ * 1e3
+    bound, by, line = _roofline(dev_ms, nbytes, nops)
+    print(f"{tag} kernel {ms:.4f} ms eager, {dev_ms:.4f} ms device "
+          f"(CUDA graph), plain {plain_ms:.3f} ms (no yardstick); "
+          f"{line} (device time); serial chain >= {chain:.5f} ms "
+          f"(T x 16 clocks at {BOOST_HZ / 1e9:.2f} GHz); the "
+          f"{'chain' if chain > bound else by} bound applies: share "
+          f"{max(chain, bound) / dev_ms:.3f}")
+    return bound, by
+
+
 def phase_viterbi(rng, dev, n_car: int):
     """Kernel V vs plain on the card, at B=2048, at the receiver's
     batches for n_car carriers, at B=1, on all-zero (tied) bursts, odd
@@ -837,6 +1152,9 @@ def phase_viterbi(rng, dev, n_car: int):
              (CV.K5_12, 320, n_car * F, "FACCH9"),
              (CV.K5_12, 484, n_car * F, "TCH9 9k6"),
              (CV.K5_14, 96, n_car, "FACCH3 jobs x 2 ciphers"),
+             # TCH9 2k4 (n = 5) and 4k8, 5 chained bursts a carrier ([l1])
+             (CV.K5_15, 148, 5 * n_car, "TCH9 2k4"),
+             (CV.K5_13, 244, 5 * n_car, "TCH9 4k8"),
              # the per-carrier receiver: one burst a decode
              (CV.K5_12, 212, 1, "per-carrier BCCH/CCCH"),
              (CV.K5_14, 96, 1, "per-carrier FACCH3"),
@@ -872,75 +1190,95 @@ def phase_viterbi(rng, dev, n_car: int):
         dev_ms = _graph_ms(lambda: VT.decode_trellis(sym, sign, flush))
         plain_ms = _cuda_ms(lambda: VT.decode_trellis_plain(sym, sign, flush),
                             3)
-        s_cnt, n = code.num_states, code.n
-        # bytes: sym in, bits and metric out; operations: two adds and a
-        # compare a state a step, and the 2^n distinct branch metrics
-        nbytes = b * t_steps * (4 * n + 1) + 4 * b + 8 * s_cnt * n
-        nops = b * t_steps * (3 * s_cnt + 2 * n * 2 ** n)
-        # one step forward (add, max) and one back (shift, or): 16 clocks
-        chain = t_steps * 16 / BOOST_HZ * 1e3
-        bound, by, line = _roofline(dev_ms, nbytes, nops)
-        print(f"[V]   kernel {ms:.4f} ms eager, {dev_ms:.4f} ms device "
-              f"(CUDA graph), plain {plain_ms:.3f} ms (no yardstick); "
-              f"{line} (device time); serial chain >= {chain:.5f} ms "
-              f"(T x 16 clocks at {BOOST_HZ / 1e9:.2f} GHz); the "
-              f"{'chain' if chain > bound else by} bound applies: share "
-              f"{max(chain, bound) / dev_ms:.3f}")
+        bound, by = _trellis_line("[V]  ", code, b, t_steps, ms, dev_ms,
+                                  plain_ms)
         if what == "CCCH":
             out = (ms, plain_ms, bound, by)
     return (err, *out)
 
 
+def _a5_line(what: str, b: int, nbits: int, with_ul: bool, eager: float,
+             dev_ms: float) -> tuple[float, str]:
+    """Print one A5 timing line: eager and device time beside the byte
+    bound (frame numbers in, a byte a bit out) and the serial-chain
+    estimate (250 mixing + nbits, or 2 * nbits, dependent clocks after
+    the 64 key clocks, each about 16 cycles); returns the byte bound and
+    what sets it."""
+    clocks = 314 + nbits * (2 if with_ul else 1)
+    nbytes = b * (8 + nbits * (2 if with_ul else 1))
+    bound, by, line = _roofline(dev_ms, nbytes, 0)
+    chain = clocks * 16 / BOOST_HZ * 1e3
+    applies = "chain" if chain > bound else by
+    print(f"[A5]   {what} B={b} nbits={nbits} ({'dl + ul' if with_ul else 'dl'}"
+          f"): kernel {eager:.4f} ms eager, {dev_ms:.5f} ms device (CUDA "
+          f"graph); {line} (device time); serial chain >= {chain:.5f} ms "
+          f"({clocks} clocks x 16 at {BOOST_HZ / 1e9:.2f} GHz); the "
+          f"{applies} bound applies: share {max(chain, bound) / dev_ms:.3f}")
+    return bound, by
+
+
 def phase_a5(rng, dev, batch: int):
-    """Kernel A5 vs its plain version at the receiver's NT9 batch, and vs
-    keystream_np for a handful of frame numbers; returns (mismatched
-    bits, ms, plain ms)."""
+    """Kernel A5 vs its plain version at the receiver's NT9 batch, at
+    batches off a warp (33) and off a CTA (batch + 1), with a random key
+    and a key of eight distinct bytes, and vs keystream_np for a handful
+    of frame numbers (bits 16-18 set among them); timed eager and by
+    CUDA-graph replay at the receiver's shape (dl only), with the uplink
+    and at batch 1 (the per-carrier receiver's 96, 208 and 658 bits).
+    Returns (mismatched bits, dl-only eager ms, plain ms, bound ms, what
+    sets it)."""
     import torch
 
     from gmr1_tpu_torch.ops import a5
-    key = rng.integers(0, 256, 8, dtype=np.uint8)
-    fns = rng.integers(0, 1 << 19, batch)
-    fns[:4] = [0, 0x70000, 0x7FFFF, 0x5A5A5]        # bits 16-18 set
-    fns = torch.as_tensor(fns, device=dev)
-    kd, ku = a5.keystream(key, fns, 658)
-    pd, pu = a5.keystream_plain(key, fns, 658)
-    torch.cuda.synchronize()
-    nbad = int((kd != pd).sum()) + int((ku != pu).sum())
-    host = fns.cpu().numpy()
-    kd_h, ku_h = kd.cpu().numpy(), ku.cpu().numpy()
-    for i in (0, 1, 2, 3, batch // 2, batch - 1):
-        rd, ru = a5.keystream_np(key, int(host[i]), 658)
-        nbad += int((kd_h[i] != rd).sum()) + int((ku_h[i] != ru).sum())
-    print(f"[A5] B={batch} nbits=658 (dl + ul): bit mismatches vs plain "
-          f"and vs keystream_np at 6 fns: {nbad}")
+    nbad = 0
+    keys = (rng.integers(0, 256, 8, dtype=np.uint8),
+            (np.arange(8) * 37 + 5).astype(np.uint8))    # bytes distinct
+    for key in keys:
+        for b in (batch, 33, batch + 1):
+            fns = rng.integers(0, 1 << 19, b)
+            fns[:4] = [0, 0x70000, 0x7FFFF, 0x5A5A5]    # bits 16-18 set
+            fns = torch.as_tensor(fns, device=dev)
+            kd, ku = a5.keystream(key, fns, 658)
+            pd, pu = a5.keystream_plain(key, fns, 658)
+            torch.cuda.synchronize()
+            bad = int((kd != pd).sum()) + int((ku != pu).sum())
+            host = fns.cpu().numpy()
+            kd_h, ku_h = kd.cpu().numpy(), ku.cpu().numpy()
+            for i in sorted({0, 1, 2, 3, b // 2, b - 1}):
+                rd, ru = a5.keystream_np(key, int(host[i]), 658)
+                bad += int((kd_h[i] != rd).sum()) + int((ku_h[i] != ru).sum())
+            print(f"[A5] key {key.tobytes().hex()} B={b} nbits=658 (dl + "
+                  f"ul): bit mismatches vs plain and vs keystream_np at "
+                  f"{len({0, 1, 2, 3, b // 2, b - 1})} fns: {bad}")
+            nbad += bad
     _require(nbad == 0, "A5 keystream")
-    ms = _cuda_ms(lambda: a5.keystream(key, fns, 658), 20)
-    ms_dl = _cuda_ms(lambda: a5.keystream(key, fns, 658, with_ul=False), 20)
-    plain_ms = _cuda_ms(lambda: a5.keystream_plain(key, fns, 658), 1)
-    # bytes: the frame numbers in, a byte a bit out (dl + ul); the chain:
-    # 314 + 2 * 658 dependent LFSR clocks a thread, each four dependent
-    # integer operations (and, popc, or, majority) of 4 clocks
-    bound, by, line = _roofline(ms, batch * (8 + 2 * 658), 0)
-    chain = (314 + 2 * 658) * 16 / BOOST_HZ * 1e3
-    print(f"[A5]   kernel {ms:.4f} ms (dl only, as the receiver asks: "
-          f"{ms_dl:.4f} ms), plain {plain_ms:.3f} ms (no yardstick); "
-          f"{line}; serial chain >= {chain:.5f} ms (1,630 clocks x 16 at "
-          f"{BOOST_HZ / 1e9:.2f} GHz): the chain bound applies")
+    key = keys[0]
+    fns = torch.as_tensor(rng.integers(0, 1 << 19, batch), device=dev)
+    ms = _cuda_ms(lambda: a5.keystream(key, fns, 658, with_ul=False), 20)
+    plain_ms = _cuda_ms(lambda: a5.keystream_plain(key, fns, 658,
+                                                   with_ul=False), 1)
+    print(f"[A5]   plain (dl) at B={batch}: {plain_ms:.3f} ms (no "
+          "yardstick: no PyTorch call computes A5/1)")
+    bound, by = _a5_line("receiver NT9 batch", batch, 658, False, ms,
+                         _graph_ms(lambda: a5.keystream(key, fns, 658,
+                                                        with_ul=False)))
+    _a5_line("with the uplink", batch, 658, True,
+             _cuda_ms(lambda: a5.keystream(key, fns, 658), 20),
+             _graph_ms(lambda: a5.keystream(key, fns, 658)))
     # the per-carrier receiver: one frame number a call, dl only
     for nbits in (96, 208, 658):
-        fn1 = torch.as_tensor([int(host[3])], device=dev)
+        fn1 = torch.as_tensor([0x5A5A5], device=dev)
         kd, _ = a5.keystream(key, fn1, nbits, with_ul=False)
         pd, _ = a5.keystream_plain(key, fn1, nbits, with_ul=False)
-        rd, _ = a5.keystream_np(key, int(host[3]), nbits)
+        rd, _ = a5.keystream_np(key, 0x5A5A5, nbits)
         bad1 = int((kd != pd).sum()) + int((kd[0].cpu().numpy() != rd).sum())
-        k_ms = _cuda_ms(lambda: a5.keystream(key, fn1, nbits, with_ul=False),
-                        20)
-        p_ms = _cuda_ms(lambda: a5.keystream_plain(key, fn1, nbits,
-                                                   with_ul=False), 1)
         print(f"[A5] B=1 nbits={nbits} (dl): bit mismatches vs plain and "
-              f"keystream_np {bad1}; kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.3f} ms")
+              f"keystream_np {bad1}")
         _require(bad1 == 0, ("A5 keystream at batch 1", nbits))
+        _a5_line("per-carrier", 1, nbits, False,
+                 _cuda_ms(lambda: a5.keystream(key, fn1, nbits,
+                                               with_ul=False), 20),
+                 _graph_ms(lambda: a5.keystream(key, fn1, nbits,
+                                                with_ul=False)))
     return float(nbad), ms, plain_ms, bound, by
 
 
@@ -1016,8 +1354,8 @@ def phase_pfb(rng, dev, fs: float = FS, need_nx: bool = False):
 
 
 def phase_ab(old_root: str, rng, dev, n_car: int) -> None:
-    """[ab]: kernels V and P built from OLD_ROOT's sources and from this
-    checkout's, each checked against the plain version and timed by
+    """[ab]: kernels V, P and A5 built from OLD_ROOT's sources and from
+    this checkout's, each checked against the plain version and timed by
     CUDA-graph replay in turns old, new, new, old at the main path's
     shapes (device times; same card, same call)."""
     import ctypes
@@ -1026,6 +1364,7 @@ def phase_ab(old_root: str, rng, dev, n_car: int) -> None:
 
     from gmr1_tpu_torch import kernels
     from gmr1_tpu_torch.channelizer import pfb
+    from gmr1_tpu_torch.ops import a5
     from gmr1_tpu_torch.ops import conv as CV
     from gmr1_tpu_torch.ops import viterbi as VT
     out = kernels.BUILD_DIR / "ab"
@@ -1033,7 +1372,7 @@ def phase_ab(old_root: str, rng, dev, n_car: int) -> None:
     fns, procs = {}, {}
     for side, root in (("old", old_root), ("new", os.path.dirname(
             os.path.abspath(__file__)))):
-        for name in ("viterbi", "pfb"):
+        for name in ("viterbi", "pfb", "a5"):
             src = os.path.join(root, "gmr1_tpu_torch", "kernels", f"{name}.cu")
             lib = out / f"{side}_{name}.so"
             procs[side, name] = (lib, subprocess.Popen(
@@ -1091,61 +1430,33 @@ def phase_ab(old_root: str, rng, dev, n_car: int) -> None:
             kernels.stream_ptr()), lambda: bool(torch.all(
                 (a2 - ref).abs() <= 1e-4 + 2e-4 * ref.abs())))
         print(f"[ab] P M={m} P={p} R={r_cnt}: {line}")
+    key = rng.integers(0, 256, 8, dtype=np.uint8)
+    key_word = int(np.frombuffer(key.tobytes(), "<u8")[0])
+    for b, nbits, with_ul in ((n_car * F, 658, False), (n_car * F, 658, True),
+                              (1, 658, False), (1, 208, False),
+                              (1, 96, False)):
+        frames = torch.as_tensor(rng.integers(0, 1 << 19, b), device=dev)
+        rd, ru = a5.keystream_plain(key, frames, nbits, with_ul=with_ul)
+        dl = torch.empty_like(rd)
+        ul = torch.empty_like(rd) if with_ul else None
+        line = turns("a5", lambda fn: fn(
+            key_word, frames.data_ptr(), dl.data_ptr(),
+            ul.data_ptr() if with_ul else None, b, nbits,
+            kernels.stream_ptr()), lambda: bool(
+                torch.equal(dl, rd) and (not with_ul or torch.equal(ul, ru))))
+        print(f"[ab] A5 B={b} nbits={nbits} "
+              f"({'dl + ul' if with_ul else 'dl'}): {line}")
 
 
-def main() -> int:
+def phase_slice(card: str) -> dict:
+    """[slice]: the 34 MHz, 1064-carrier capture with traffic through
+    WidebandReceiver(device="cuda").run(); returns its kernel launches."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "false)", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    try:
-        from gmr1_tpu_torch import kernels
-        from gmr1_tpu_torch.channelizer.pfb import branch_filter
-        from gmr1_tpu_torch.ops.a5 import keystream
-        from gmr1_tpu_torch.ops.viterbi import decode_trellis
-        from gmr1_tpu_torch.rx.wideband import WidebandReceiver
-    except ImportError as e:
-        print(f"chip_smoke: the gmr1_tpu_torch package is missing ({e})",
-              file=sys.stderr)
-        return 2
 
-    # ---- 1. environment ----------------------------------------------
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    dev = torch.device("cuda")
-    print(f"[env] {card}; {torch.cuda.get_device_name(0)} x"
-          f"{torch.cuda.device_count()}; python {sys.version.split()[0]}, "
-          f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"nvcc {shutil.which('nvcc') or kernels._nvcc()}")
-
-    # ---- 2. build ----------------------------------------------------
-    t0 = time.perf_counter()
-    per = kernels.build_all()
-    print(f"[build] {', '.join(f'{k} {v:.1f} s' for k, v in per.items())}"
-          f" ({time.perf_counter() - t0:.1f} s) into {kernels.BUILD_DIR}")
-
-    # ---- 3-5. kernels vs their plain versions ------------------------
-    rng = np.random.default_rng(0x5EED)
-    n_car = 2 * (1088 // 2 - 12)          # the slice's live carriers
-    if sys.argv[1:2] == ["--ab"]:
-        phase_ab(sys.argv[2], rng, dev, n_car)
-        return 0
-    v_err, v_ms, v_plain, v_bound, v_by = phase_viterbi(rng, dev, n_car)
-    p_err, p_ms, p_plain, p_bound, p_by, p_conv = phase_pfb(rng, dev)
-    p_err = max(p_err, phase_pfb(rng, dev, PATHS_FS, need_nx=True)[0])
-    a_err, a_ms, a_plain, a_bound, a_by = phase_a5(rng, dev, n_car * F)
-
-    # ---- 6-7. the per-carrier CLI and the wideband paths -------------
-    by_path = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        by_path["carrier"] = phase_carrier(tmp, card)
-        by_path["paths"] = phase_paths(tmp, card)
-
-    # ---- 8. the slice ------------------------------------------------
+    from gmr1_tpu_torch.channelizer.pfb import branch_filter
+    from gmr1_tpu_torch.ops.a5 import keystream
+    from gmr1_tpu_torch.ops.viterbi import decode_trellis
+    from gmr1_tpu_torch.rx.wideband import WidebandReceiver
     t0 = time.perf_counter()
     wb, center, seeded, truths = synthesize(FS, CONTENT_BLOCKS)
     print(f"[slice] synthesized {wb.shape[0] / 1e6:.1f} Msamples "
@@ -1183,7 +1494,61 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2f} s" for k, v in rx.prof.items()))
     for name, n in launches.items():
         _require(n > 0, f"the receiver never launched the {name} kernel")
-    by_path["slice"] = launches
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        from gmr1_tpu_torch import kernels
+    except ImportError as e:
+        print(f"chip_smoke: the gmr1_tpu_torch package is missing ({e})",
+              file=sys.stderr)
+        return 2
+
+    # ---- 1. environment ----------------------------------------------
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    print(f"[env] {card}; {torch.cuda.get_device_name(0)} x"
+          f"{torch.cuda.device_count()}; python {sys.version.split()[0]}, "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"nvcc {shutil.which('nvcc') or kernels._nvcc()}")
+
+    # ---- 2. build ----------------------------------------------------
+    t0 = time.perf_counter()
+    per = kernels.build_all()
+    print(f"[build] {', '.join(f'{k} {v:.1f} s' for k, v in per.items())}"
+          f" ({time.perf_counter() - t0:.1f} s) into {kernels.BUILD_DIR}")
+
+    # ---- 3-5. kernels vs their plain versions ------------------------
+    rng = np.random.default_rng(0x5EED)
+    n_car = 2 * (1088 // 2 - 12)          # the slice's live carriers
+    if sys.argv[1:2] == ["--ab"]:
+        phase_ab(sys.argv[2], rng, dev, n_car)
+        return 0
+    v_err, v_ms, v_plain, v_bound, v_by = phase_viterbi(rng, dev, n_car)
+    p_err, p_ms, p_plain, p_bound, p_by, p_conv = phase_pfb(rng, dev)
+    p_err = max(p_err, phase_pfb(rng, dev, PATHS_FS, need_nx=True)[0])
+    a_err, a_ms, a_plain, a_bound, a_by = phase_a5(rng, dev, n_car * F)
+
+    # ---- 6-8. the per-carrier CLI, the wideband paths, the slice -----
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["carrier"], speech = phase_carrier(tmp, card)
+        by_path["paths"] = phase_paths(tmp, card)
+        by_path["slice"] = phase_slice(card)
+
+        # ---- 9-10. the last L1 coders and the vocoder ----------------
+        by_path["l1"] = phase_l1(rng, dev, n_car)
+        phase_codec(tmp, card, speech, dev)
 
     def per(name):
         return dict(launches=sum(v[name] for v in by_path.values()),

@@ -227,6 +227,7 @@ int launch_warp_n(const float* sym, const float* sign, uint8_t* bits,
     case 2: return launch_warp<S, 2>(sym, sign, bits, metric, B, T, flush, st);
     case 3: return launch_warp<S, 3>(sym, sign, bits, metric, B, T, flush, st);
     case 4: return launch_warp<S, 4>(sym, sign, bits, metric, B, T, flush, st);
+    case 5: return launch_warp<S, 5>(sym, sign, bits, metric, B, T, flush, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -236,6 +237,7 @@ int launch_warp_n(const float* sym, const float* sign, uint8_t* bits,
 // ---------------------------------------------------------------------
 
 constexpr int kCta = 256;
+constexpr int kMaxN = 5;                    // the widest code, K5_15 (TCH9 2k4)
 
 template <int S>
 __global__ void __launch_bounds__(kCta)
@@ -258,9 +260,9 @@ vit_cta_kernel(const float* __restrict__ sym, const float* __restrict__ sign,
   const bool live = burst < B;
 
   // expected-sign rows of the two branches entering state s
-  float sg0[4], sg1[4];
+  float sg0[kMaxN], sg1[kMaxN];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < kMaxN; ++k) {
     sg0[k] = k < n ? sign[s * n + k] : 0.f;
     sg1[k] = k < n ? sign[(s + S) * n + k] : 0.f;
   }
@@ -272,7 +274,7 @@ vit_cta_kernel(const float* __restrict__ sym, const float* __restrict__ sign,
   for (int t = 0; t < T; ++t) {
     float bm0 = 0.f, bm1 = 0.f;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
+    for (int k = 0; k < kMaxN; ++k) {
       if (k < n) {
         const float v = live ? __ldg(xs + t * n + k) : 0.f;
         bm0 = fmaf(sg0[k], v, bm0);
@@ -335,14 +337,15 @@ int launch_cta(const float* sym, const float* sign, uint8_t* bits,
 
 }  // namespace
 
-// sym (B, T, n) float32 integer-valued sbits, n <= 4; sign (2S, n)
+// sym (B, T, n) float32 integer-valued sbits, n <= 5; sign (2S, n)
 // float32 expected signs (flat index 2*state + input bit); outputs
 // bits (B, T) uint8 and metric (B,) float32.  Returns a cudaError_t.
 extern "C" int gmr1_viterbi_decode(const float* sym, const float* sign,
                                    uint8_t* bits, float* metric, int B,
                                    int T, int n, int S, int flush,
                                    void* stream) {
-  if (n < 1 || n > 4 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > kMaxN || T < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (S) {

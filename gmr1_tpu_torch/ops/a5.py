@@ -16,8 +16,11 @@ Three implementations:
                      dependent clocks as a Python loop of tensor ops.  The
                      registers are held in int64 (they are 17-23 bits
                      wide; torch's uint32 supports few operations).
-  * the CUDA kernel  kernels/a5.cu, one thread per frame number with the
-                     four registers in registers.
+  * the CUDA kernel  kernels/a5.cu: the key schedule in closed form (the
+                     host's base state XOR per-fn-bit deltas), four lanes
+                     a frame number (R1, R2, R3 each as a window of its
+                     bit stream, R4's clock decisions 32 steps at a
+                     time), rows written as whole lines.
 `keystream` dispatches by device: a CUDA tensor of frame numbers runs
 the kernel, a CPU tensor the plain version; nothing falls back.
 """

@@ -95,7 +95,7 @@ def _decode_trellis_cuda(sym, sign, flush: bool):
         raise TypeError("the Viterbi kernel takes float32 sym and sign")
     b_cnt, t_steps, n = sym.shape
     s_cnt = sign.shape[0] // 2
-    if sign.shape != (2 * s_cnt, n) or not 1 <= n <= 4:
+    if sign.shape != (2 * s_cnt, n) or not 1 <= n <= 5:
         raise ValueError(f"bad trellis shapes sym {tuple(sym.shape)} "
                          f"sign {tuple(sign.shape)}")
     if s_cnt not in (16, 32, 64, 128, 256):

@@ -69,7 +69,8 @@ def main(argv=None) -> int:
                     help="append decoded TCH9 CSD payloads (the "
                          "reference's /tmp/csd.data, gmr1_rx.c:342)")
     ap.add_argument("--speech-out", metavar="FILE",
-                    help="append decoded 10-byte TCH3 vocoder frames")
+                    help="append decoded 10-byte TCH3 vocoder frames "
+                         "(feed to python -m gmr1_tpu_torch.codec)")
     ap.add_argument("--key", dest="key_opt", help="A5 key (16 hex digits)")
     ap.add_argument("--sps", dest="sps_opt", type=int, default=4)
     ap.add_argument("--pcap", help="write GSMTap stream to a pcap file")

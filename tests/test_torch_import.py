@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from gmr1_tpu_torch import kernels
+from gmr1_tpu_torch import codec, kernels
 from gmr1_tpu_torch.channelizer import pfb
 from gmr1_tpu_torch.ops import viterbi
 from gmr1_tpu_torch.rx import Receiver
@@ -34,8 +34,11 @@ import importlib, pkgutil, sys
 import gmr1_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gmr1_tpu_torch.__path__,
                                                 "gmr1_tpu_torch.")]
-# the receiver's entry points: the package and its CLI module
-for n in ("gmr1_tpu_torch.rx", "gmr1_tpu_torch.rx.__main__"):
+# the entry points (the receiver, the vocoder and their CLI modules) and
+# every L1 coder
+for n in ("gmr1_tpu_torch.rx", "gmr1_tpu_torch.rx.__main__",
+          "gmr1_tpu_torch.codec", "gmr1_tpu_torch.codec.__main__",
+          "gmr1_tpu_torch.l1.xch_dc12", "gmr1_tpu_torch.l1.rach"):
     assert n in names, n
 for n in names:
     importlib.import_module(n)
@@ -78,7 +81,8 @@ def test_entry_points_default_to_cuda():
     """The receivers and the streaming pre-resampler run on the card
     unless told otherwise: without CUDA their default device raises
     instead of running on the CPU."""
-    for cls in (WidebandReceiver, Receiver, pfb.StreamPreResampler):
+    for cls in (WidebandReceiver, Receiver, pfb.StreamPreResampler,
+                codec.init):
         assert inspect.signature(cls).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")

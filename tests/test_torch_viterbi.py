@@ -181,6 +181,7 @@ WARP_CASES = [   # (class, B, T): B odd and not a multiple of the bursts a
     (CLASSES[0], 1, 48), (CLASSES[0], 3, 37), (CLASSES[0], 33, 70),
     (CLASSES[1], 5, 33), (CLASSES[2], 3, 45), (CLASSES[2], 2, 96),
     (("k6_14", 6, j_conv.K6_14.polys, j_conv.TERM_FLUSH), 3, 70),
+    (("k5_15", 5, j_conv.K5_15.polys, j_conv.TERM_FLUSH), 3, 50),  # n = 5
 ]                # warp, T not a multiple of 32
 
 

@@ -28,14 +28,15 @@ result line):
                   is timed eager and by CUDA-graph replay (device time)
                   beside its bound and the serial-chain estimate.
   4. kernel P     PFB branch-filter kernel vs its plain version at the
-                  34 MHz geometry (M=1088, P=10, R=20000) and at the
-                  30.72 MS/s wide-carrier geometry (M=984, hop=492, the
+                  34 MHz geometry (M=1088, P=10, R=20000; and R=10000
+                  and 5000, a block's rows on 2 and 4 mesh shards) and
+                  at the 30.72 MS/s wide-carrier geometry (M=984, hop=492, the
                   perfect-reconstruction prototype's P): its output and
                   the channel bank within rtol 2e-4 / atol 1e-4; timed
                   beside its bound and the one-call yardstick
                   F.conv1d(groups=hop) (full f32, inputs already in its
                   layout; checked to the same tolerance, never on the
-                  port's path).
+                  port's path); eager and by CUDA-graph replay.
   5. kernel A5    A5/1 keystream kernel vs its plain version at the
                   receiver's NT9 batch (8512 frame numbers, 658 bits,
                   downlink and uplink), at batches of 33 and 8513 (off a
@@ -75,14 +76,33 @@ result line):
                   bit-exact against the synthesis truth, speech, DKAB,
                   CSD order and TCH3 teardown checked per carrier, and
                   all three kernels launched by the receiver.
-  9. l1           one DC12 and one RACH burst a grid carrier (1064
+  9. mesh         the multi-device form on several shards of the card (2
+                  and 4 on one card; every card where there are more):
+                  analyze_reshard on a [slice] block against the single-
+                  device analysis (f32 transport to rtol 2e-4 / atol
+                  1e-4, bf16 within one bf16 ulp), also over an NCCL
+                  process group of one rank; WidebandReceiver(mesh=) over
+                  the whole [slice] capture: verify_slice, every
+                  CRC-protected frame equal to [slice]'s, kernels P, V and
+                  A5 launched, P D times a block; h2d_dtype="int16" on one
+                  device (verify_slice); device_block_time of the [slice]
+                  receiver; ShardedTransponder and StreamingTransponder
+                  (two steps) on 2 shards over a full-width capture on
+                  their static slot map, against the port's CPU run bit
+                  for bit and against the truth.
+ 10. split        `python -m gmr1_tpu_torch.channelizer` in pfb and direct
+                  mode on two [slice] blocks written as a cfile, four
+                  ARFCNs: SI1s decoded to the truth, the card's streams
+                  against the CPU's; TF32 off for cuDNN; the process-
+                  recording driver's commands name the port's modules.
+ 11. l1           one DC12 and one RACH burst a grid carrier (1064
                   each; some RACH decoded with a wrong SB mask) encoded
                   on the card, noised, decoded on the card (DC12: kernel
                   V's K=9 tail-biting form), and 5 chained TCH9 2k4 and
                   4k8 bursts a carrier: bursts, bits, CRC flags, metrics
                   and rings equal the port's CPU run; kernel V timed at
                   the DC12 shape beside its bound.
- 10. codec        the AMBE vocoder: decode_frames at bench_codec.py's
+ 12. codec        the AMBE vocoder: decode_frames at bench_codec.py's
                   shape (4096 channels x 50 random frames, seed 11) on
                   the card, frames/s and real-time voice channels; 8 of
                   those channels and tests/test_codec.py's constant-
@@ -91,8 +111,12 @@ result line):
                   samples; `python -m gmr1_tpu_torch.codec` turns the
                   [carrier] phase's --speech-out file into a WAV (header,
                   160 samples a frame, PCM against the CPU).
+ 13. tools        gmr1_rach_gen (351 unit-magnitude symbols) and
+                  gmr1_gen_mat (G @ u ^ g equal to the encoder) on the
+                  card.
 
-Kernel launches are counted per path (carrier, paths, slice, l1): each
+Kernel launches are counted per path (carrier, paths, slice, mesh,
+split, l1, tools): each
 count is set to 0 just before the path runs and read just after, and a
 path fails if a kernel it runs was never launched.  The last three lines
 are the card's name and power limit, a JSON object with each kernel's
@@ -192,6 +216,16 @@ def _ass_cmd_1_l2(rng, tn9: int) -> np.ndarray:
     return l2
 
 
+def _place(bb: np.ndarray, pos: int, x1) -> None:
+    """Add a 1-sps burst, raised-cosine shaped to SPS, to the baseband bb
+    at sample pos."""
+    from gmr1_tpu_torch.ops import cplx
+    xc = cplx.to_complex(x1)
+    nsym = xc.shape[-1]
+    t = np.arange(nsym * SPS)[:, None] / SPS - np.arange(nsym)[None, :]
+    bb[pos:pos + nsym * SPS] += xc @ _rc(t).astype(np.float32).T
+
+
 def build_stream(rng, n_frames: int, story: str | None = None,
                  beam2: bool = False):
     """One payload stream's 4-sps baseband + its truth.
@@ -221,11 +255,7 @@ def build_stream(rng, n_frames: int, story: str | None = None,
         return k * FRAME4 + tn * 39 * SPS
 
     def place(k, x1, tn=0):
-        xc = cplx.to_complex(x1)
-        nsym = xc.shape[-1]
-        t = np.arange(nsym * SPS)[:, None] / SPS - np.arange(nsym)[None, :]
-        bb[at(k, tn):at(k, tn) + nsym * SPS] += xc @ _rc(t).astype(
-            np.float32).T
+        _place(bb, at(k, tn), x1)
 
     chirp = cplx.to_complex(fcch._chirp_np(fcch.FCCH, SPS, "dual")) \
         / np.sqrt(2)
@@ -320,6 +350,16 @@ def synthesize(fs: float, content_blocks: int, seed: int = 0xA44):
     stories = ("e2e", "reassign") + (None,) * (NS - 2)
     streams, truths = zip(*[build_stream(rng, content_blocks * F, st)
                             for st in stories])
+    out = _comb_mix(rng, streams, arfcns, fs, m, n_block, content_blocks,
+                    lead_noise=True)
+    return out, center, {a: a % NS for a in arfcns}, truths
+
+
+def _comb_mix(rng, streams, arfcns, fs: float, m: int, n_block: int,
+              blocks: int, lead_noise: bool) -> np.ndarray:
+    """The NS 4-sps streams on their carriers' combs (ARFCN % NS = stream,
+    a random phase each), interpolated block by block to fs, plus noise;
+    `lead_noise` puts one block of noise first.  Planar (N, 2) float32."""
     combs = []
     for s in range(NS):
         spec = np.zeros(m, np.complex128)
@@ -329,20 +369,22 @@ def synthesize(fs: float, content_blocks: int, seed: int = 0xA44):
         combs.append((np.fft.ifft(spec) * m).astype(np.complex64))
     grid = np.arange(streams[0].shape[0], dtype=np.float64)
     ratio = (23400.0 * SPS) / fs
-    out = np.empty(((content_blocks + 1) * n_block, 2), np.float32)
-    out[:n_block] = rng.standard_normal((n_block, 2)) * 0.01   # noise block
-    for b in range(content_blocks):
+    lead = int(lead_noise)
+    out = np.empty(((blocks + lead) * n_block, 2), np.float32)
+    if lead:
+        out[:n_block] = rng.standard_normal((n_block, 2)) * 0.01
+    for b in range(blocks):
         pos = (np.arange(n_block, dtype=np.float64) + b * n_block) * ratio
         wb = np.zeros(n_block, np.complex64)
         for s in range(NS):
             x = (np.interp(pos, grid, streams[s].real)
                  + 1j * np.interp(pos, grid, streams[s].imag))
             wb += x.astype(np.complex64) * np.tile(combs[s], n_block // m)
-        blk = out[(b + 1) * n_block:(b + 2) * n_block]
+        blk = out[(b + lead) * n_block:(b + lead + 1) * n_block]
         blk[:, 0] = wb.real
         blk[:, 1] = wb.imag
         blk += rng.standard_normal((n_block, 2)) * 0.01
-    return out, center, {a: a % NS for a in arfcns}, truths
+    return out
 
 
 def verify_slice(rx, seeded: dict, truths) -> dict:
@@ -427,6 +469,28 @@ def verify_slice(rx, seeded: dict, truths) -> dict:
     return dict(n, carriers=len(rx.carriers), seeded=len(seeded),
                 strays=len(strays),
                 stray_frames=sum(len(c.frames) for c in strays))
+
+
+def _sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _counts() -> dict:
+    """The three kernels' launch counts."""
+    from gmr1_tpu_torch.channelizer.pfb import branch_filter
+    from gmr1_tpu_torch.ops.a5 import keystream
+    from gmr1_tpu_torch.ops.viterbi import decode_trellis
+    return dict(viterbi=decode_trellis.launches, pfb=branch_filter.launches,
+                a5=keystream.launches)
+
+
+def _zero_counts() -> None:
+    from gmr1_tpu_torch.channelizer.pfb import branch_filter
+    from gmr1_tpu_torch.ops.a5 import keystream
+    from gmr1_tpu_torch.ops.viterbi import decode_trellis
+    decode_trellis.launches = branch_filter.launches = keystream.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -521,9 +585,6 @@ def phase_carrier(tmp: str, card: str) -> tuple[dict, str]:
     launches and the path of its --speech-out file."""
     import torch
 
-    from gmr1_tpu_torch.channelizer.pfb import branch_filter
-    from gmr1_tpu_torch.ops.a5 import keystream
-    from gmr1_tpu_torch.ops.viterbi import decode_trellis
     from gmr1_tpu_torch.rx.__main__ import main as rx_main
     cap, truth = carrier_capture()
     path = os.path.join(tmp, "carrier.cfile")
@@ -538,15 +599,13 @@ def phase_carrier(tmp: str, card: str) -> tuple[dict, str]:
         for f in out.values():
             if os.path.exists(f):
                 os.remove(f)
-        decode_trellis.launches = branch_filter.launches = 0
-        keystream.launches = 0
+        _zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = rx_main(argv)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        launches = dict(viterbi=decode_trellis.launches,
-                        pfb=branch_filter.launches, a5=keystream.launches)
+        launches = _counts()
         print(f"[carrier] {run} CLI wall {walls[-1]:.2f} s = "
               f"{len(cap) / walls[-1] / 1e6:.4f} Msamples/s ({card}); "
               "kernel launches: " + ", ".join(
@@ -713,9 +772,6 @@ def phase_paths(tmp: str, card: str) -> dict:
     capture on the card; returns its kernel launches."""
     import torch
 
-    from gmr1_tpu_torch.channelizer.pfb import branch_filter
-    from gmr1_tpu_torch.ops.a5 import keystream
-    from gmr1_tpu_torch.ops.viterbi import decode_trellis
     from gmr1_tpu_torch.rx.__main__ import main as rx_main
     t0 = time.perf_counter()
     wb, center, seeded, truths, wides = synthesize_paths(PATHS_FS,
@@ -735,14 +791,13 @@ def phase_paths(tmp: str, card: str) -> dict:
             "--no-udp", "--pcap", pcap]
     for ch, _ in wides:
         argv += ["--wide", str(ch)]
-    decode_trellis.launches = branch_filter.launches = keystream.launches = 0
+    _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = rx_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(viterbi=decode_trellis.launches,
-                    pfb=branch_filter.launches, a5=keystream.launches)
+    launches = _counts()
     print(f"[paths] CLI wall {wall:.2f} s = {n_samp / wall / 1e6:.2f} "
           f"Msamples/s vs real time {PATHS_FS / 1e6:.2f} ({card}); kernel "
           "launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
@@ -778,9 +833,7 @@ def phase_l1(rng, dev, n_car: int) -> dict:
     card's run."""
     import torch
 
-    from gmr1_tpu_torch.channelizer.pfb import branch_filter
     from gmr1_tpu_torch.l1 import rach, tch9, xch_dc12
-    from gmr1_tpu_torch.ops import a5 as A5
     from gmr1_tpu_torch.ops import interleave as IL
     from gmr1_tpu_torch.ops import scramble as SC
     from gmr1_tpu_torch.ops import viterbi as VT
@@ -847,15 +900,13 @@ def phase_l1(rng, dev, n_car: int) -> dict:
             out[m.name] = (il.buf, il.n, *rest)
         return out
 
-    VT.decode_trellis.launches = branch_filter.launches = 0
-    A5.keystream.launches = 0
+    _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     card = run(dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(viterbi=VT.decode_trellis.launches,
-                    pfb=branch_filter.launches, a5=A5.keystream.launches)
+    launches = _counts()
     cpu = run("cpu")
     for k in card:
         same(k, card[k], cpu[k])
@@ -1282,18 +1333,19 @@ def phase_a5(rng, dev, batch: int):
     return float(nbad), ms, plain_ms, bound, by
 
 
-def phase_pfb(rng, dev, fs: float = FS, need_nx: bool = False):
+def phase_pfb(rng, dev, fs: float = FS, need_nx: bool = False,
+              r_cnt: int = 2500 * F):
     """Kernel P vs plain at the geometry of rate fs (the receiver's own
     prototype filter; need_nx: the perfect-reconstruction prototype that
-    wide carriers switch on), seeded input; returns (max |err| of the
-    bank and of a2, branch-filter ms, plain ms, bound ms, what sets it,
-    F.conv1d ms)."""
+    wide carriers switch on) and r_cnt rows (a block's, or a mesh
+    shard's), seeded input; returns (max |err| of the bank and of a2,
+    branch-filter ms, plain ms, bound ms, what sets it, F.conv1d ms)."""
     import torch
 
     from gmr1_tpu_torch.channelizer import pfb
     ana = pfb.Channelizer(fs, 1525e6 + 31250 * CENTER_ARFCN,
                           need_nx=need_nx).analyzer
-    m, p, hop, r_cnt = ana.m, ana.p, ana.hop, 2500 * F
+    m, p, hop = ana.m, ana.p, ana.hop
     if fs == FS:
         _require((m, p) == (1088, 10), (m, p))
     x = torch.as_tensor(rng.normal(size=(r_cnt * hop + p * m, 2))
@@ -1319,6 +1371,7 @@ def phase_pfb(rng, dev, fs: float = FS, need_nx: bool = False):
     _require(bool(torch.all((a2 - ref).abs() <= 1e-4 + 2e-4 * ref.abs())),
              "PFB branch filter outside rtol 2e-4 / atol 1e-4")
     ms = _cuda_ms(lambda: pfb.branch_filter(x, wa, r_cnt, hop), 20)
+    dev_ms = _graph_ms(lambda: pfb.branch_filter(x, wa, r_cnt, hop))
     plain_ms = _cuda_ms(lambda: pfb.branch_filter_plain(x, wa, r_cnt, hop), 5)
     block_ms = _cuda_ms(lambda: ana.block(x), 5)
     # the one-call yardstick, never on the port's path: a grouped conv1d
@@ -1346,10 +1399,11 @@ def phase_pfb(rng, dev, fs: float = FS, need_nx: bool = False):
     # non-zero multiply-adds a (row, lane)
     nbytes = 4 * ((r_cnt + 2 * p) * hop * 2 + wa.numel() + r_cnt * 4 * hop)
     bound, by, line = _roofline(ms, nbytes, r_cnt * hop * 4 * p * 2)
-    print(f"[P]   branch filter kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
-          f"(no yardstick), F.conv1d(groups=hop) {conv_ms:.4f} ms (max|err| "
-          f"vs plain {cerr}); {line}; whole analysis block (kernel + f32 "
-          f"DFT) {block_ms:.3f} ms")
+    print(f"[P]   branch filter kernel {ms:.4f} ms eager, {dev_ms:.4f} ms "
+          f"device (CUDA graph, share {bound / dev_ms:.3f}), plain "
+          f"{plain_ms:.3f} ms (no yardstick), F.conv1d(groups=hop) "
+          f"{conv_ms:.4f} ms (max|err| vs plain {cerr}); {line} (eager); "
+          f"whole analysis block (kernel + f32 DFT) {block_ms:.3f} ms")
     return max(err, a2_err), ms, plain_ms, bound, by, conv_ms
 
 
@@ -1448,14 +1502,13 @@ def phase_ab(old_root: str, rng, dev, n_car: int) -> None:
               f"({'dl + ul' if with_ul else 'dl'}): {line}")
 
 
-def phase_slice(card: str) -> dict:
+def phase_slice(card: str) -> tuple[dict, dict]:
     """[slice]: the 34 MHz, 1064-carrier capture with traffic through
-    WidebandReceiver(device="cuda").run(); returns its kernel launches."""
+    WidebandReceiver(device="cuda").run(); returns its kernel launches and
+    the capture, its truth and the receiver (with its frames) for the
+    phases that reuse them."""
     import torch
 
-    from gmr1_tpu_torch.channelizer.pfb import branch_filter
-    from gmr1_tpu_torch.ops.a5 import keystream
-    from gmr1_tpu_torch.ops.viterbi import decode_trellis
     from gmr1_tpu_torch.rx.wideband import WidebandReceiver
     t0 = time.perf_counter()
     wb, center, seeded, truths = synthesize(FS, CONTENT_BLOCKS)
@@ -1463,16 +1516,13 @@ def phase_slice(card: str) -> dict:
           f"({wb.shape[0] / FS:.2f} s at {FS / 1e6:.0f} MHz, "
           f"{len(seeded)} live carriers) in {time.perf_counter() - t0:.1f} s")
     rx = WidebandReceiver(wb, FS, center, sps=SPS, device="cuda")
-    decode_trellis.launches = 0
-    branch_filter.launches = 0
-    keystream.launches = 0
+    _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n_frames = rx.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(viterbi=decode_trellis.launches,
-                    pfb=branch_filter.launches, a5=keystream.launches)
+    launches = _counts()
     counts = verify_slice(rx, seeded, truths)
     t_acq = rx.prof["acquire"]
     print(f"[slice] carriers found {counts['carriers']} "
@@ -1494,6 +1544,505 @@ def phase_slice(card: str) -> dict:
           + ", ".join(f"{k} {v:.2f} s" for k, v in rx.prof.items()))
     for name, n in launches.items():
         _require(n > 0, f"the receiver never launched the {name} kernel")
+    return launches, dict(wb=wb, fs=FS, center=center, seeded=seeded,
+                          truths=truths, rx=rx, launches=launches)
+
+
+# --------------------------------------------------------------------------
+# [mesh]: the multi-device form, several shards on the card
+# --------------------------------------------------------------------------
+
+def _crc_types() -> tuple:
+    """GSMTap sub-types of the CRC-protected frames: BCCH, CCCH, FACCH3,
+    FACCH9."""
+    from gmr1_tpu_torch.rx import gsmtap as gt
+    return (gt.GMR1_BCCH, gt.GMR1_CCCH, gt.GMR1_TCH3 | gt.GMR1_FACCH,
+            gt.GMR1_TCH9 | gt.GMR1_FACCH)
+
+
+def _meshes(dev) -> list:
+    """Every card of the machine when it has more than one, else 2 and 4
+    shards on the one device."""
+    import torch
+
+    from gmr1_tpu_torch.parallel import Mesh
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n > 1:
+        return [Mesh([f"cuda:{i}" for i in range(n)])]
+    return [Mesh([dev] * d) for d in (2, 4)]
+
+
+def _rows_check(what: str, got, ref, bf16: bool) -> None:
+    """Hold resharded rows against the single-device analysis: f32
+    transport to rtol 2e-4 / atol 1e-4, bf16 within one bf16 ulp
+    (|a - b| <= 2^-7 |b| + 1e-6)."""
+    import torch
+    d = (got - ref).abs()
+    ok = (d <= 2.0 ** -7 * ref.abs() + 1e-6) if bf16 \
+        else (d <= 1e-4 + 2e-4 * ref.abs())
+    same = bool(torch.equal(got, ref.bfloat16().float() if bf16 else ref))
+    print(f"[mesh] {what} ({'bf16' if bf16 else 'f32'} transport): max|err| "
+          f"{float(d.max())} vs the single-device analysis (peak "
+          f"{float(ref.abs().max()):.1f}); equal to it"
+          f"{' rounded to bf16' if bf16 else ''}: {same}")
+    _require(bool(ok.all()), (what, bf16, int((~ok).sum())))
+
+
+def phase_mesh(card: str, sl: dict, dev) -> dict:
+    """[mesh]: analyze_reshard on 2 and 4 shards (single-process mesh, and
+    the process-group form at world size 1) against the single-device
+    analysis on a block of the [slice] capture; WidebandReceiver(mesh=)
+    over the whole capture (verify_slice, CRC-protected frames equal to
+    [slice]'s); int16 ingest on one device; device_block_time.  Returns
+    the mesh receivers' kernel launches."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from gmr1_tpu_torch.parallel import (ShardedRows, analyze_reshard,
+                                         overlapped_shards)
+    from gmr1_tpu_torch.rx.wideband import WidebandReceiver
+    wb, fs, center = sl["wb"], sl["fs"], sl["center"]
+    rx1 = sl["rx"]
+    ana = rx1.chz.analyzer
+    halo, n_block = ana.p * ana.m, rx1.n_block
+    x = np.ascontiguousarray(wb[n_block:2 * n_block])
+    xh = torch.cat([torch.zeros((halo, 2)), torch.from_numpy(x)]).to(dev)
+    ref = ana.block(xh).permute(1, 0, 2)                 # (M, R_b, 2)
+    meshes = _meshes(dev)
+    for mesh in meshes:
+        sh, _ = overlapped_shards(x, np.zeros((halo, 2), np.float32), halo,
+                                  mesh.size)
+        shards = [torch.from_numpy(sh[i]).to(d)
+                  for i, d in enumerate(mesh.devices)]
+        for bf16 in (False, True):
+            got = ShardedRows(analyze_reshard(ana, mesh, shards, bf16))
+            _rows_check(f"analyze_reshard on {mesh}, M={ana.m} "
+                        f"R={x.shape[0] // ana.hop}",
+                        got.gather(dev), ref, bf16)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        for bf16 in (False, True):
+            _rows_check(f"analyze_reshard over a {backend} process group of "
+                        "1 rank", analyze_reshard(ana, dist.group.WORLD, xh,
+                                                  bf16), ref, bf16)
+    finally:
+        dist.destroy_process_group()
+    del xh, ref
+
+    crc = _crc_types()
+    single = sorted(f for f in rx1.frames if f[1] in crc)
+    by_path = dict(viterbi=0, pfb=0, a5=0)
+    for mesh in meshes:
+        rx = WidebandReceiver(wb, fs, center, sps=SPS, mesh=mesh, device=dev)
+        _zero_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        n_frames = rx.run()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        counts = verify_slice(rx, sl["seeded"], sl["truths"])
+        got = [f for f in rx.frames if f[1] in crc]
+        _require(sorted(got) == single,
+                 (str(mesh), "CRC-protected frames differ from [slice]'s",
+                  len(got), len(single)))
+        want_p = mesh.size * sl["launches"]["pfb"]
+        _require(launches["pfb"] == want_p,
+                 (str(mesh), "kernel P launches", launches["pfb"], want_p))
+        for name, v in launches.items():
+            _require(v > 0, f"the mesh receiver never launched the {name} "
+                     "kernel")
+            by_path[name] += v
+        print(f"[mesh] WidebandReceiver(mesh={mesh}).run(): wall {wall:.2f} s"
+              f" = {wb.shape[0] / wall / 1e6:.2f} Msamples/s vs real time "
+              f"{fs / 1e6:.0f} ({card}); {n_frames} frames, verify_slice "
+              f"passed ({counts['si1']} SI1, {counts['ccch']} CCCH, "
+              f"{counts['facch3']} FACCH3, {counts['facch9']} FACCH9); "
+              f"{len(got)} CRC-protected frames equal [slice]'s (same order: "
+              f"{got == [f for f in rx1.frames if f[1] in crc]}); reshard "
+              f"{rx.ici_bytes_per_block / 1e6:.2f} MB a device a block; "
+              "kernel launches: " + ", ".join(f"{k} {v}" for k, v in
+                                              launches.items())
+              + f" (P = {mesh.size} x [slice]'s {sl['launches']['pfb']}); "
+              "sections " + ", ".join(f"{k} {v:.2f} s"
+                                      for k, v in rx.prof.items()))
+        print(f"[mesh] device_block_time on {mesh}: "
+              f"{rx.device_block_time() * 1e3:.2f} ms a block")
+        del rx
+
+    rx = WidebandReceiver(wb, fs, center, sps=SPS, h2d_dtype="int16",
+                          device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    n_frames = rx.run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts = verify_slice(rx, sl["seeded"], sl["truths"])
+    got = sorted(f for f in rx.frames if f[1] in crc)
+    print(f"[mesh] h2d_dtype=int16 on one device: wall {wall:.2f} s = "
+          f"{wb.shape[0] / wall / 1e6:.2f} Msamples/s ({card}); {n_frames} "
+          f"frames, verify_slice passed ({counts['si1']} SI1, "
+          f"{counts['facch3']} FACCH3, {counts['facch9']} FACCH9); "
+          f"CRC-protected frames equal [slice]'s: {got == single}; sections "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in rx.prof.items()))
+    del rx
+    block_s = rx1.n_block / fs
+    dbt = rx1.device_block_time()
+    print(f"[mesh] device_block_time of the [slice] receiver: {dbt * 1e3:.2f}"
+          f" ms a block (ingest step + block phase on the resident state) "
+          f"against the {block_s * 1e3:.0f} ms of real time a block covers "
+          f"({block_s / dbt:.1f}x real time; {card})")
+    return by_path
+
+
+# the transponders' static slot map (tests/test_parallel.py:162)
+TP_F, TP_STEPS = 8, 2         # frames a step, steps
+TP_TN3, TP_TN9, TP_DKP = 6, 12, 9
+
+
+def transponder_stream(rng, n_frames: int):
+    """One payload stream on the transponders' slot map: SI1 BCCH on frame
+    2 of each TP_F-frame step, NT3 speech on TN TP_TN3 in frames 0-5 and
+    DKABs there in frames 6-7, a chained TCH9 9k6 train on TN TP_TN9 in
+    every frame.  Returns (4-sps baseband, truth)."""
+    import torch
+
+    from gmr1_tpu_torch.l1 import bcch, tch3, tch9
+    from gmr1_tpu_torch.sdr import bursts as BU
+    from gmr1_tpu_torch.sdr import modem
+    bb = np.zeros(n_frames * FRAME4 + 2000, np.complex64)
+    truth = dict(bcch=[], speech=[], csd=[])
+    il = tch9.interleaver_init(dtype=torch.uint8)
+    zeros4, zeros10 = np.zeros(4, np.uint8), np.zeros(10, np.uint8)
+    for k in range(n_frames):
+        f = k % TP_F
+        if f == 2:
+            l2 = rng.integers(0, 256, 24, dtype=np.uint8)
+            truth["bcch"].append(l2)
+            _place(bb, k * FRAME4, modem.mod(BU.BCCH, bcch.encode(l2)))
+        slot3 = k * FRAME4 + TP_TN3 * 39 * SPS
+        if f < 6:
+            f0 = rng.integers(0, 256, 10, dtype=np.uint8)
+            f1 = rng.integers(0, 256, 10, dtype=np.uint8)
+            truth["speech"].append((f0, f1))
+            _place(bb, slot3, modem.mod(BU.NT3_SPEECH,
+                                        tch3.encode(f0, f1, zeros4)))
+        else:
+            sig = _dkab_signal(TP_DKP, DKAB_BITS)
+            bb[slot3:slot3 + len(sig)] += sig
+        pay = rng.integers(0, 256, 60, dtype=np.uint8)
+        truth["csd"].append(pay)
+        il, eb = tch9.encode(pay, tch9.MODE_9K6, zeros10, zeros4, il)
+        _place(bb, k * FRAME4 + TP_TN9 * 39 * SPS,
+               modem.mod(BU.NT9, eb, sync_id=1))
+    return bb, truth
+
+
+def transponder_capture(fs: float, seed: int = 0x7A5):
+    """Every usable grid channel live on the transponders' slot map: NS
+    transponder_stream()s on their carriers' combs (ARFCN % NS), TP_STEPS
+    steps of TP_F frames, no lead block.  Returns (planar (N, 2) float32,
+    center, [live ARFCN], [truth per stream])."""
+    from gmr1_tpu_torch.channelizer import pfb
+    center = 1525e6 + 31250 * CENTER_ARFCN
+    chz = pfb.Channelizer(fs, center, sps=SPS)
+    m = chz.n_chans
+    span = m // 2 - 12
+    arfcns = [CENTER_ARFCN + o for o in range(-span, span)]
+    rng = np.random.default_rng(seed)
+    streams, truths = zip(*[transponder_stream(rng, TP_STEPS * TP_F)
+                            for _ in range(NS)])
+    wb = _comb_mix(rng, streams, arfcns, fs, m,
+                   2500 * TP_F * chz.analyzer.hop, TP_STEPS, lead_noise=False)
+    return wb, center, arfcns, truths
+
+
+def phase_transponders(card: str, dev, fs: float = FS) -> dict:
+    """[mesh] ShardedTransponder (one step) and StreamingTransponder (two
+    steps, the carry across) on Mesh([dev] * 2) over every live carrier of
+    a transponder_capture, against the port's CPU run of the same input
+    (Mesh(["cpu"] * 2)) bit for bit and against the truth.  Returns the
+    card run's kernel launches."""
+    import torch
+
+    from gmr1_tpu_torch.channelizer.arfcn import Channel
+    from gmr1_tpu_torch.channelizer.pfb import Channelizer
+    from gmr1_tpu_torch.l1 import bcch
+    from gmr1_tpu_torch.parallel import (Mesh, ShardedTransponder,
+                                         StreamingTransponder)
+    from gmr1_tpu_torch.sdr import bursts as BU
+    from gmr1_tpu_torch.sdr import modem
+    t0 = time.perf_counter()
+    wb, center, arfcns, truths = transponder_capture(fs)
+    chz = Channelizer(fs, center, sps=SPS)
+    m = chz.n_chans
+    n_step = 2500 * TP_F * chz.analyzer.hop
+    print(f"[mesh] transponder capture: {wb.shape[0] / 1e6:.2f} Msamples, "
+          f"M={m}, {len(arfcns)} live carriers, {TP_STEPS} steps of {TP_F} "
+          f"frames, synthesized in {time.perf_counter() - t0:.1f} s")
+    # the pipeline delay: an unsharded probe on one carrier (its SI1 at
+    # frame 2), as tests/test_parallel.py finds it
+    stream = chz.extract(chz.process(torch.from_numpy(wb[:n_step]).to(dev)),
+                         Channel(CENTER_ARFCN))[:5 * FRAME4]
+    blen = BU.BCCH.len_syms * SPS
+    probe = modem.demod(BU.BCCH, stream, sps=SPS, win=stream.shape[0] - blen)
+    _require(not int(bcch.decode(probe.ebits)[1]), "transponder probe SI1")
+    p0 = int(round(float(probe.toa))) - 2 * FRAME4
+    cols = np.array([chz.freq2index(Channel(a).frequency) for a in arfcns])
+    kw = dict(frames=TP_F, burst_pos=p0, tn_tch=TP_TN3, tn_tch9=TP_TN9,
+              dkab_p=TP_DKP)
+
+    def run(devs):
+        mesh = Mesh(devs)
+        st = StreamingTransponder(Channelizer(fs, center, sps=SPS), mesh,
+                                  **kw)
+        _require(mesh.size * st.n_local == n_step, (st.n_local, n_step))
+        carry, outs = st.carry_init(), []
+        for s in range(TP_STEPS):
+            o, carry = st.step(st.shard_input(wb[s * n_step:(s + 1) * n_step]),
+                               carry)
+            outs.append({k: v.cpu().numpy() for k, v in o.items()})
+        sh = ShardedTransponder(Channelizer(fs, center, sps=SPS), mesh,
+                                st.n_local, burst=BU.BCCH, sps=SPS,
+                                burst_pos=p0 + 2 * FRAME4 - 32, win=64)
+        l2, fail, _metric, n_bad = sh.step(sh.shard_input(wb[:n_step]))
+        return outs, (l2.cpu().numpy(), fail.cpu().numpy(), int(n_bad))
+
+    _zero_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    card_out = run([dev] * 2)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    t0 = time.perf_counter()
+    cpu_out = run(["cpu"] * 2)
+    cpu_wall = time.perf_counter() - t0
+    # the card against the CPU, bit for bit (every live carrier; the CRC
+    # flags of every column)
+    for s, (c, p) in enumerate(zip(card_out[0], cpu_out[0])):
+        f9 = 2 if s == 0 else 0               # TCH9 payload i at burst i+2
+        pairs = dict(crcb=(c["crcb"], p["crcb"]),
+                     l2b=(c["l2b"][cols], p["l2b"][cols]),
+                     sf0=(c["sf0"][:6, cols], p["sf0"][:6, cols]),
+                     sf1=(c["sf1"][:6, cols], p["sf1"][:6, cols]),
+                     dk_found=(c["dk_found"][:, cols], p["dk_found"][:, cols]),
+                     dk_bits=(c["dk_bits"][6:, cols] < 0,
+                              p["dk_bits"][6:, cols] < 0),
+                     l2_t9=(c["l2_t9"][f9:, cols], p["l2_t9"][f9:, cols]))
+        for k, (a, b) in pairs.items():
+            _require(np.array_equal(a, b), ("StreamingTransponder card vs "
+                                            "CPU", s, k))
+    for k, a, b in zip(("l2", "crc", "n_bad"), card_out[1], cpu_out[1]):
+        _require(np.array_equal(a[cols] if k == "l2" else a,
+                                b[cols] if k == "l2" else b),
+                 ("ShardedTransponder card vs CPU", k))
+    # and the truth of every live carrier
+    tr = [truths[a % NS] for a in arfcns]
+    outs = card_out[0]
+    for s, o in enumerate(outs):
+        _require(not o["crcb"][cols].any()
+                 and np.array_equal(o["l2b"][cols],
+                                    np.stack([t["bcch"][s] for t in tr])),
+                 ("StreamingTransponder BCCH", s))
+        for f in range(6):
+            sp = [t["speech"][s * 6 + f] for t in tr]
+            _require(np.array_equal(o["sf0"][f, cols], np.stack([x[0] for x in sp]))
+                     and np.array_equal(o["sf1"][f, cols],
+                                        np.stack([x[1] for x in sp])),
+                     ("StreamingTransponder speech", s, f))
+        _require(o["dk_found"][6:, cols].all()
+                 and not o["dk_found"][:6, cols].any()
+                 and np.array_equal((o["dk_bits"][6:, cols] < 0).astype(int),
+                                    np.broadcast_to(DKAB_BITS, (2, len(cols), 8))),
+                 ("StreamingTransponder DKAB", s))
+        for f in range(TP_F):
+            i = s * TP_F + f - 2
+            if i >= 0:
+                _require(np.array_equal(o["l2_t9"][f, cols],
+                                        np.stack([t["csd"][i] for t in tr])),
+                         ("StreamingTransponder TCH9 across steps", s, f))
+    l2, fail, n_bad = card_out[1]
+    _require(not fail[cols].any() and np.array_equal(
+        l2[cols], np.stack([t["bcch"][0] for t in tr]))
+        and n_bad == m - len(cols), ("ShardedTransponder", n_bad))
+    print(f"[mesh] StreamingTransponder ({TP_STEPS} steps) + "
+          f"ShardedTransponder (1 step) on 2 shards of the card: {wall:.2f} s"
+          f" ({card}), the CPU's run of the same {cpu_wall:.2f} s; l2, CRC "
+          f"flags, speech, DKAB found and bits and TCH9 l2 across the step "
+          f"boundary equal the CPU's bit for bit and the truth on all "
+          f"{len(cols)} live carriers; n_bad {n_bad}; kernel launches: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    _require(launches["pfb"] > 0 and launches["viterbi"] > 0,
+             ("transponder launches", launches))
+    return launches
+
+
+# --------------------------------------------------------------------------
+# [split]: the channelizer CLI; [tools]: the tools drivers
+# --------------------------------------------------------------------------
+
+SPLIT_OFFSETS = (-4, -1, 2, 5)   # one ARFCN a comb stream, near the center
+SPLIT_BLOCKS = 2                 # content blocks of the [slice] capture
+
+
+def phase_split(tmp: str, card: str, sl: dict, dev) -> dict:
+    """[split]: `python -m gmr1_tpu_torch.channelizer` in both modes on a
+    cut of the [slice] capture (written as a cfile named by the
+    reference's recording pattern), four seeded ARFCNs, --block one
+    [slice] block: each stream decodes its SI1s to the truth, and the
+    card's streams equal the CPU's to rtol 1e-4 (atol 1e-4 of the
+    stream's peak); gmr1_process_recording prints the port's commands for
+    the capture.  Returns the card runs' kernel launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from gmr1_tpu_torch.channelizer import ddc  # noqa: F401 (TF32 flag)
+    from gmr1_tpu_torch.channelizer.__main__ import main as chz_main
+    from gmr1_tpu_torch.l1 import bcch
+    from gmr1_tpu_torch.sdr import bursts as BU
+    from gmr1_tpu_torch.sdr import modem
+    from gmr1_tpu_torch.tools import gmr1_process_recording as gpr
+    _require(not (torch.backends.cudnn.allow_tf32
+                  or torch.backends.cuda.matmul.allow_tf32),
+             "TF32 is on for cuDNN convolutions or matmuls")
+    wb, fs, center = sl["wb"], sl["fs"], sl["center"]
+    n_block = sl["rx"].n_block
+    arfcns = [CENTER_ARFCN + o for o in SPLIT_OFFSETS]
+    path = os.path.join(tmp, f"slice-f{center:.0f}-s{fs:.0f}"
+                             "-t20261016120000.cfile")
+    wb[n_block:(1 + SPLIT_BLOCKS) * n_block].tofile(path)
+    argv = [path, "-s", str(fs), "-f", str(center), "--block", str(n_block)]
+    for a in arfcns:
+        argv += ["-a", str(a)]
+
+    def split(mode, device, role):
+        out = os.path.join(tmp, f"split_{mode}_{role}")
+        os.makedirs(out)
+        _sync(dev)
+        t0 = time.perf_counter()
+        rc = chz_main(argv + ["--mode", mode, "-o", out, "--device", device])
+        _sync(dev)
+        _require(rc == 0, ("channelizer CLI", mode, device, rc))
+        return time.perf_counter() - t0, {
+            a: np.fromfile(os.path.join(out, f"arfcn_{a}.cfile"),
+                           np.float32).reshape(-1, 2) for a in arfcns}
+
+    _zero_counts()
+    card_runs = {mode: split(mode, str(dev), "card")
+                 for mode in ("pfb", "direct")}
+    launches = _counts()
+    _require(launches["pfb"] > 0, "the pfb split never launched kernel P")
+    blen = BU.BCCH.len_syms * SPS
+    for mode, (wall, streams) in card_runs.items():
+        cpu_wall, cpu = split(mode, "cpu", "cpu")
+        n_si1, err = 0, 0.0
+        for a in arfcns:
+            got, want = streams[a], cpu[a]
+            _require(got.shape == want.shape and got.shape[0] > 0,
+                     (mode, a, got.shape, want.shape))
+            d = np.abs(got - want)
+            err = max(err, float(d.max()))
+            _require(bool(np.all(d <= 1e-4 * np.abs(want)
+                                 + 1e-4 * np.abs(want).max())),
+                     (mode, a, "card vs CPU", float(d.max())))
+            nb = got.shape[0] // SPLIT_BLOCKS
+            for b in range(SPLIT_BLOCKS):       # SI1 at frame 2 of a block
+                beg = b * nb + 2 * FRAME4 - 200
+                seg = torch.from_numpy(got[beg:beg + blen + 400]).to(dev)
+                r = modem.demod(BU.BCCH, seg, sps=SPS, win=400)
+                l2, bad, _ = bcch.decode(r.ebits)
+                want_l2 = sl["truths"][a % NS]["si1"][F0 + 8 * b + 2]
+                _require(not int(bad) and bytes(l2.cpu().numpy()) == want_l2,
+                         (mode, a, b, "SI1"))
+                n_si1 += 1
+        print(f"[split] --mode {mode}: {len(arfcns)} carriers x "
+              f"{SPLIT_BLOCKS} blocks of {n_block} samples, CLI wall "
+              f"{wall:.2f} s on the card ({card}), {cpu_wall:.2f} s on the "
+              f"CPU; card vs CPU max|err| {err:.3g}; {n_si1} SI1s decoded "
+              "to the truth")
+    print("[split] kernel launches (card runs): " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = gpr.main([path])
+    lines = buf.getvalue().splitlines()
+    _band, vis = gpr.visible_arfcns(gpr.parse_filename(path))
+    _require(rc == 0 and len(lines) == 1 + len(vis)
+             and set(arfcns) <= set(vis)
+             and f" -m gmr1_tpu_torch.channelizer {path} " in lines[0]
+             and lines[0].count(" -a ") == len(vis)
+             and all(line.endswith(f" -m gmr1_tpu_torch.rx 4 arfcn_{a}.cfile")
+                     for a, line in zip(vis, lines[1:]))
+             and "gmr1_tpu." not in buf.getvalue(),
+             ("gmr1_process_recording", rc, len(lines), len(vis)))
+    print(f"[split] gmr1_process_recording {os.path.basename(path)}: the "
+          f"split command and {len(vis)} demod commands, all of the port's "
+          "modules")
+    return launches
+
+
+def _pbm(path: str) -> np.ndarray:
+    with open(path) as fh:
+        _require(fh.readline().strip() == "P1", (path, "P1"))
+        w, h = map(int, fh.readline().split())
+        m = np.array([line.split() for line in fh], np.uint8)
+    _require(m.shape == (h, w), (path, m.shape, (h, w)))
+    return m
+
+
+def phase_tools(tmp: str, dev, rng) -> dict:
+    """[tools]: gmr1_rach_gen and gmr1_gen_mat with their default device
+    (the card): the RACH cfile holds 351 unit-magnitude symbols, and
+    G @ u ^ g equals the FACCH3 encoder on the card for random u.
+    Returns the kernel launches (the tools decode nothing)."""
+    import torch
+
+    from gmr1_tpu_torch.l1 import facch3
+    from gmr1_tpu_torch.ops import bits as B
+    from gmr1_tpu_torch.tools import gmr1_gen_mat, gmr1_rach_gen
+    argv = ["--device", str(dev)]
+    _zero_counts()
+    out = os.path.join(tmp, "rach.cfile")
+    payload = bytes(rng.integers(0, 256, 18, dtype=np.uint8)).hex()
+    rc = gmr1_rach_gen.main([out, "0x05", payload] + argv)
+    data = np.fromfile(out, np.complex64)
+    _require(rc == 0 and len(data) == 351
+             and np.allclose(np.abs(data[3:-3]), 1.0, atol=1e-5),
+             ("gmr1_rach_gen", rc, len(data)))
+    wd = os.path.join(tmp, "gen_mat")
+    os.makedirs(wd)
+    cwd = os.getcwd()
+    os.chdir(wd)
+    try:
+        rc = gmr1_gen_mat.main(argv)
+    finally:
+        os.chdir(cwd)
+    G, g = _pbm(os.path.join(wd, "mat_G.pbm")), _pbm(os.path.join(wd,
+                                                              "mat_g.pbm"))
+    _require(rc == 0 and G.shape == (384, 76) and g.shape == (384, 1),
+             ("gmr1_gen_mat", rc, G.shape, g.shape))
+    u = rng.integers(0, 2, (64, 76), dtype=np.uint8)
+    e = facch3.encode(B.pack_bits(torch.as_tensor(u, device=dev), 10),
+                      torch.zeros((64, 32), dtype=torch.uint8, device=dev))
+    enc = gmr1_gen_mat.nonstatus_bits(e.cpu().numpy().astype(np.uint8))
+    _require(np.array_equal((u.astype(np.int64) @ G.T.astype(np.int64)
+                             + g[:, 0]) % 2, enc), "G @ u ^ g != encoder")
+    launches = _counts()
+    print(f"[tools] gmr1_rach_gen --device {dev}: 351 unit-magnitude RACH "
+          f"symbols; gmr1_gen_mat --device {dev}: G (384 x 76) and g, G @ u "
+          "^ g equal to the FACCH3 encoder on the card for 64 random u; "
+          "kernel launches: " + ", ".join(f"{k} {v}" for k, v in
+                                          launches.items()))
     return launches
 
 
@@ -1537,6 +2086,8 @@ def main() -> int:
     v_err, v_ms, v_plain, v_bound, v_by = phase_viterbi(rng, dev, n_car)
     p_err, p_ms, p_plain, p_bound, p_by, p_conv = phase_pfb(rng, dev)
     p_err = max(p_err, phase_pfb(rng, dev, PATHS_FS, need_nx=True)[0])
+    for d in (2, 4):                      # a mesh shard's rows
+        p_err = max(p_err, phase_pfb(rng, dev, r_cnt=2500 * F // d)[0])
     a_err, a_ms, a_plain, a_bound, a_by = phase_a5(rng, dev, n_car * F)
 
     # ---- 6-8. the per-carrier CLI, the wideband paths, the slice -----
@@ -1544,11 +2095,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         by_path["carrier"], speech = phase_carrier(tmp, card)
         by_path["paths"] = phase_paths(tmp, card)
-        by_path["slice"] = phase_slice(card)
+        by_path["slice"], sl = phase_slice(card)
 
-        # ---- 9-10. the last L1 coders and the vocoder ----------------
+        # ---- 9-10. the multi-device form, the channelizer CLI --------
+        by_path["mesh"] = phase_mesh(card, sl, dev)
+        phase_transponders(card, dev)
+        by_path["split"] = phase_split(tmp, card, sl, dev)
+        del sl
+
+        # ---- 11-13. the last L1 coders, the vocoder, the tools -------
         by_path["l1"] = phase_l1(rng, dev, n_car)
         phase_codec(tmp, card, speech, dev)
+        by_path["tools"] = phase_tools(tmp, dev, rng)
 
     def per(name):
         return dict(launches=sum(v[name] for v in by_path.values()),

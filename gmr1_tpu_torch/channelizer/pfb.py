@@ -124,11 +124,9 @@ def _branch_filter_cuda(x, wa, r_cnt: int, hop: int):
     if x.data_ptr() % 8:
         raise ValueError("the PFB kernel reads x as float2 rows: it must "
                          "be 8-byte aligned")
-    fn = kernels.library("pfb")
     a2 = torch.empty((r_cnt, 4 * hop), dtype=torch.float32, device=x.device)
-    err = fn(x.data_ptr(), wa.data_ptr(), a2.data_ptr(), r_cnt, hop, p2,
-             kernels.stream_ptr())
-    kernels.check(err, "pfb")
+    kernels.launch("pfb", x.device, x.data_ptr(), wa.data_ptr(),
+                   a2.data_ptr(), r_cnt, hop, p2)
     branch_filter.launches += 1
     return a2
 
@@ -669,15 +667,21 @@ class WideStreamer:
     def feed(self, bank_rows) -> np.ndarray:
         """bank_rows: carrier-major block rows (M, R_b, 2).  Returns the
         wide stream chunk (n_out, 2) as host numpy."""
-        dev = bank_rows.device
+        return self.feed_cols(bank_rows[torch.as_tensor(
+            self.cols, device=bank_rows.device)])
+
+    def feed_cols(self, rows_w) -> np.ndarray:
+        """feed() from only the subchannel columns (W, R_b, 2), in `cols`
+        order (a mesh receiver gathers just these from its
+        carrier-sharded rows, gmr1_tpu/channelizer/pfb.py:680)."""
+        dev = rows_w.device
         t_fir = len(self._fir_rev)
         if self._state is None:
             self._state = (
-                bank_rows.new_zeros((len(self.cols), self.h_up, 2)),
-                bank_rows.new_zeros((t_fir, 2)),
+                rows_w.new_zeros((len(self.cols), self.h_up, 2)),
+                rows_w.new_zeros((t_fir, 2)),
                 np.zeros(len(self.cols), np.int64))
         hist_up, hist_fir, n0 = self._state
-        rows_w = bank_rows[torch.as_tensor(self.cols, device=dev)]
         rows_full = torch.cat([hist_up, rows_w], dim=1)
         s = self._up.resample_window(rows_full, *self._geom)  # (W, n, 2)
         # exact wrapped rotation (see _phase_period): index mod per

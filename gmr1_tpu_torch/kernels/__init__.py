@@ -126,5 +126,17 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"kernel {name!r} launch failed: cudaError {err}")
 
 
-def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def stream_ptr(device=None) -> int:
+    """The current CUDA stream of `device` (the current device if None)."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call kernels/<name>.cu's entry point for tensors on `device`: that
+    device is current for the launch and its current stream goes last in
+    the arguments, so a tensor on cuda:1 never launches into cuda:0's
+    context.  Raises on a CUDA error code."""
+    fn = library(name)
+    with torch.cuda.device(device):
+        err = fn(*args, stream_ptr(device))
+    check(err, name)

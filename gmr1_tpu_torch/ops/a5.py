@@ -206,11 +206,9 @@ def _keystream_cuda(key, fns, nbits: int, with_ul: bool = True):
     key_word = int(np.frombuffer(k.tobytes(), "<u8")[0])
     dl = torch.empty((b_cnt, nbits), dtype=torch.uint8, device=fns.device)
     ul = torch.empty_like(dl) if with_ul else None
-    fn = kernels.library("a5")
-    err = fn(key_word, flat.data_ptr(), dl.data_ptr(),
-             ul.data_ptr() if with_ul else None, b_cnt, nbits,
-             kernels.stream_ptr())
-    kernels.check(err, "a5")
+    kernels.launch("a5", fns.device, key_word, flat.data_ptr(),
+                   dl.data_ptr(), ul.data_ptr() if with_ul else None, b_cnt,
+                   nbits)
     keystream.launches += 1
     shape = (*fns.shape, nbits)
     return dl.view(shape), ul.view(shape) if with_ul else None

@@ -42,6 +42,34 @@ def pack_bits(bits, nbytes: int | None = None):
     return torch.sum(bits << sh, dim=-1).to(torch.uint8)
 
 
+def unpack_bits_np(data: np.ndarray, nbits: int | None = None) -> np.ndarray:
+    """NumPy twin of unpack_bits for host-side table building."""
+    bits = np.unpackbits(np.asarray(data, dtype=np.uint8), axis=-1)
+    return bits if nbits is None else bits[..., :nbits]
+
+
+def pack_bits_np(bits: np.ndarray, nbytes: int | None = None) -> np.ndarray:
+    """NumPy twin of pack_bits."""
+    bits = np.asarray(bits, dtype=np.uint8)
+    n = bits.shape[-1]
+    nb = (n + 7) // 8 if nbytes is None else nbytes
+    pad = nb * 8 - n
+    if pad:
+        bits = np.pad(bits, [(0, 0)] * (bits.ndim - 1) + [(0, pad)])
+    return np.packbits(bits, axis=-1)
+
+
+def sbit_to_ubit(sbits):
+    """Soft -> hard decision: negative soft value = bit 1 (osmocom sbit)."""
+    return (torch.as_tensor(sbits) < 0).to(torch.uint8)
+
+
+def ubit_to_sbit(ubits):
+    """Hard -> ideal soft: bit 0 -> +127, bit 1 -> -127."""
+    u = torch.as_tensor(ubits)
+    return torch.where(u != 0, -127, 127).to(torch.int8)
+
+
 def like(x, ref: torch.Tensor) -> torch.Tensor:
     """An array-like as a tensor of ref's dtype on ref's device."""
     return torch.as_tensor(x).to(device=ref.device, dtype=ref.dtype)

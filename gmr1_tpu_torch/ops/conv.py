@@ -142,6 +142,28 @@ def _encode_matrix(code: ConvCode, in_len: int) -> np.ndarray:
     return g.astype(np.float32)
 
 
+def encode_np(code: ConvCode, bits: np.ndarray) -> np.ndarray:
+    """Host bit-serial encoder (table source of truth, used for tests/G)."""
+    bits = np.asarray(bits, dtype=np.uint8)
+    in_len = len(bits)
+    ns, _ = code.tables
+    obits = code.output_bits
+    state = 0
+    if code.term == TERM_TAIL_BITING:
+        # start state = the last K-1 input bits (libosmocore convention):
+        # bit 0 of the state is input[len-1], the most recent at wrap
+        for b in bits[in_len - code.k + 1:]:
+            state = ((state << 1) | int(b)) & (code.num_states - 1)
+        seq = bits
+    else:
+        seq = np.concatenate([bits, np.zeros(code.k - 1, dtype=np.uint8)])
+    out = np.empty(len(seq) * code.n, dtype=np.uint8)
+    for t, b in enumerate(seq):
+        out[t * code.n:(t + 1) * code.n] = obits[state, int(b)]
+        state = ns[state, int(b)]
+    return out
+
+
 def encode(code: ConvCode, bits, in_len: int | None = None):
     """Batched encoder: bits (..., L) -> (..., out_len(L)) uint8."""
     bits = torch.as_tensor(bits)

@@ -127,6 +127,15 @@ def _moving_sum(e, wl: int):
     return cs[..., wl:] - cs[..., :-wl]
 
 
+def peaks_scan(v, k: int):
+    """Indices of the k highest-energy bins, descending
+    (osmo_cxvec_peaks_scan).  A stable descending sort puts the lower
+    index first on ties, as jax.lax.top_k does; torch.topk does not
+    promise that on CUDA."""
+    e = cplx.abs2(cplx.tensor(v))
+    return torch.sort(e, dim=-1, descending=True, stable=True)[1][..., :k]
+
+
 @lru_cache(maxsize=None)
 def _sinc_base(n_taps: int) -> np.ndarray:
     return (np.arange(n_taps) - (n_taps // 2)).astype(np.float32)

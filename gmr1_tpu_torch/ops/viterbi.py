@@ -101,13 +101,11 @@ def _decode_trellis_cuda(sym, sign, flush: bool):
     if s_cnt not in (16, 32, 64, 128, 256):
         raise ValueError(f"unsupported state count {s_cnt}")
     sym, sign = sym.contiguous(), sign.contiguous()
-    fn = kernels.library("viterbi")
     bits = torch.empty((b_cnt, t_steps), dtype=torch.uint8, device=sym.device)
     metric = torch.empty((b_cnt,), dtype=torch.float32, device=sym.device)
-    err = fn(sym.data_ptr(), sign.data_ptr(), bits.data_ptr(),
-             metric.data_ptr(), b_cnt, t_steps, n, s_cnt, int(flush),
-             kernels.stream_ptr())
-    kernels.check(err, "viterbi")
+    kernels.launch("viterbi", sym.device, sym.data_ptr(), sign.data_ptr(),
+                   bits.data_ptr(), metric.data_ptr(), b_cnt, t_steps, n,
+                   s_cnt, int(flush))
     decode_trellis.launches += 1
     return bits, metric
 
@@ -143,6 +141,12 @@ def decode(code: ConvCode, soft, in_len: int):
                                   code.term == TERM_FLUSH)
     return (bits.reshape(*batch_shape, t_steps)[..., :in_len],
             metric.reshape(batch_shape))
+
+
+def decode_punctured(code: ConvCode, soft, in_len: int, keep_idx: np.ndarray):
+    """Convenience: de-puncture then decode."""
+    full = depuncture(soft, keep_idx, code.out_len(in_len))
+    return decode(code, full, in_len)
 
 
 def distance(code: ConvCode, soft, bits_decoded, keep_idx=None):

@@ -10,7 +10,7 @@ carrier in batched device calls):
 
     python -m gmr1_tpu_torch.rx --wideband CAP.cfile|tcp://HOST:PORT \\
         --fs HZ --center HZ [--arfcns 970,974] [--snr-min 3] [--beams 2] \\
-        [--wide ARFCNxW ...] [--stream] [--key KEYHEX]
+        [--wide ARFCNxW ...] [--stream] [--h2d-dtype int16] [--key KEYHEX]
 
 Options: --device cuda|cpu (where the signal math runs; cuda by default,
 and an error where CUDA is absent), --pcap FILE (also write GSMTap to
@@ -58,9 +58,10 @@ def main(argv=None) -> int:
                     help="FCCH beams per carrier (multi-beam scan)")
     ap.add_argument("--wide", action="append", default=[],
                     help="wide carrier spec like 500x3 (repeatable)")
-    ap.add_argument("--h2d-dtype", choices=("float32",), default="float32",
-                    help="wideband ingest transfer dtype (int16 ingest is "
-                         "not ported)")
+    ap.add_argument("--h2d-dtype", choices=("float32", "int16"),
+                    default="float32",
+                    help="wideband ingest transfer dtype (int16: per-block "
+                         "peak-normalized, half the upload; on-grid fs only)")
     ap.add_argument("--stream", action="store_true",
                     help="consume the capture strictly forward in "
                          "blocks (live-source mode; off-grid fs "

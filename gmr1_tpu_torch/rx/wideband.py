@@ -44,7 +44,23 @@ in, every carrier's BCCH, CCCH, TCH3 (speech, FACCH3, DKAB) and TCH9
                a small phase for just those carriers (`_phase_tch3s`,
                `_phase_tch9s`, `_chain_fix`).
 
-The JAX-side `mesh` option and int16 ingest are not ported.
+Options of the JAX receiver that change the ingest:
+
+  mesh         a `parallel.Mesh`: each block's time shards (the halo
+               prepended by the host, `overlapped_shards`) are analysed
+               one a device and resharded to carrier-sharded rows
+               (`analyze_reshard`, bf16 transport); every device resamples
+               and keeps the streams of its own carriers (`ShardedRows`).
+               The acquisition passes, the block phase and the correction
+               phases run on the mesh's first device: they gather each
+               carrier's windows on the device that owns its column and
+               move only the windows, and each wide channel reads only
+               its own columns.
+  h2d_dtype    "int16": each block is peak-normalized and quantized on the
+               host with its dequant factor in one leading int16 row (one
+               row a shard in mesh mode), halving the upload; it is
+               dequantized on the device at the top of the step, and the
+               overlap-save halo stays float32 there.
 """
 
 from __future__ import annotations
@@ -62,6 +78,8 @@ from ..l1 import bcch, ccch, facch3, facch9, tch3, tch9
 from ..ops import a5 as a5op
 from ..ops import cplx
 from ..ops.interleave import InterleaverState
+from ..parallel.ingest import (ShardedRows, analyze_reshard,
+                               ici_bytes_per_step, overlapped_shards)
 from ..sdr import bursts as BU
 from ..sdr import dkab, fcch, modem
 from ..sdr.defs import SYM_RATE
@@ -87,7 +105,18 @@ def _windows_rows(streams, rows, idx, wlen: int):
     """streams (M, Ns, 2), rows (C,), idx (C, F) -> (C, F, wlen, 2).
 
     One gather fusing the carrier-row select with the window slice;
-    starts are clamped into [0, Ns - wlen] like the JAX dynamic_slice."""
+    starts are clamped into [0, Ns - wlen] like the JAX dynamic_slice.
+    Carrier-sharded streams (mesh mode): each carrier's windows are
+    gathered on the device that owns its column and only the windows move
+    to rows' device (in JAX the one collective of the block phase,
+    gmr1_tpu/rx/wideband.py:1150-1153)."""
+    if isinstance(streams, ShardedRows):
+        out = torch.empty((*idx.shape, wlen, 2), device=rows.device)
+        for j, sel, local in streams.owners(rows):
+            part = streams.parts[j]
+            out[sel] = _windows_rows(part, local, idx[sel].to(part.device),
+                                     wlen).to(rows.device)
+        return out
     ns = streams.shape[1]
     start = torch.clamp(idx, 0, ns - wlen)
     pos = start[..., None] + torch.arange(wlen, device=streams.device)
@@ -97,7 +126,11 @@ def _windows_rows(streams, rows, idx, wlen: int):
 def _acq_pwr_block(ft, buf, sps: int, t_tail: int):
     """Incremental FCCH scan, one block: symbol-rate dual-chirp
     correlation power for the windows ENDING in this block's new samples
-    (buf is the (M, T_buf, 2) stream buffer) -> (M, S_b/sps)."""
+    (buf is the (M, T_buf, 2) stream buffer) -> (M, S_b/sps).  Sharded
+    buffers scan on each device; only the powers move."""
+    if isinstance(buf, ShardedRows):
+        return torch.cat([_acq_pwr_block(ft, p, sps, t_tail).to(buf.device)
+                          for p in buf.parts])
     y = buf[:, ::sps]
     return fcch.scan_pwr(ft, y[:, t_tail // sps - (ft.len_syms - 1):])
 
@@ -275,9 +308,13 @@ class WidebandReceiver:
 
     `wb` is planar float32 (N, 2), complex64 (N,) host samples or a
     `cfile.SampleSource`.  `device` is where the streams live and every
-    phase runs: the card by default, and without CUDA that raises.  The
-    remaining arguments are the JAX receiver's; `mesh` and `h2d_dtype`
-    accept only their defaults (None, "float32").
+    phase runs: the card by default, and without CUDA that raises.
+    `mesh` (a `parallel.Mesh`) shards the ingest over its devices (see
+    the module doc; M and the block's rows must divide by its size, and
+    each shard's rows must be even); the phases then run on
+    mesh.devices[0], and a `device` that disagrees with it raises.
+    `h2d_dtype` is "float32" or "int16" (on-grid rates only).  The
+    remaining arguments are the JAX receiver's.
     """
 
     def __init__(self, wb, samp_rate: float, center_freq: float,
@@ -289,14 +326,19 @@ class WidebandReceiver:
                  verbose: bool = False, mesh=None, beams: int = 1,
                  wide_channels=None, h2d_dtype: str = "float32",
                  device: str | torch.device = "cuda"):
-        unported = [name for name, off in (
-            ("mesh", mesh is not None),
-            ("h2d_dtype", h2d_dtype != "float32")) if off]
-        if unported:
-            raise NotImplementedError(
-                f"not ported: {', '.join(unported)} (single device, float32 "
-                "ingest only)")
-        self.device = checked_device(device)
+        if h2d_dtype not in ("float32", "int16"):
+            raise ValueError(h2d_dtype)
+        self._h2d_int16 = h2d_dtype == "int16"
+        if mesh is None:
+            self.device = checked_device(device)
+        else:
+            dev, d0 = torch.device(device), mesh.devices[0]
+            if dev.type != d0.type or dev.index not in (None, d0.index):
+                raise ValueError(f"device={str(device)!r} disagrees with the "
+                                 f"mesh's first device {d0}, where the "
+                                 "phases run")
+            self.device = d0
+        self.mesh = mesh
         self.sps = sps
         self.kc = np.frombuffer(kc, np.uint8) if kc else np.zeros(8, np.uint8)
         self.sink = sink
@@ -333,8 +375,14 @@ class WidebandReceiver:
         self._a5_seen: dict[tuple[int, int], np.ndarray] = {}
         # wall-clock per pipeline section, accumulated across run()
         self.prof: dict[str, float] = {}
+        self._last_put = None        # the last block put (device_block_time)
+        self._last_meta = None       # the last block phase's host meta
         self._build_ingest()
         self._pre = None
+        if self._h2d_int16 and self.chz.pre_resamp is not None:
+            raise ValueError("h2d_dtype=int16 requires an on-grid fs (the "
+                             "off-grid pre-resampler streams device chunks, "
+                             "so there is no host transfer to quantize)")
         if self.chz.pre_resamp is not None:
             self._pre = StreamPreResampler(self.chz.pre_resamp,
                                            self.n_block, self._pull,
@@ -344,6 +392,36 @@ class WidebandReceiver:
         t1 = time.perf_counter()
         self.prof[key] = self.prof.get(key, 0.0) + (t1 - t0)
         return t1
+
+    def _quant(self, x: np.ndarray) -> np.ndarray:
+        """Host-side ingest quantization for h2d_dtype=int16: peak-normalize
+        the block and prepend one row carrying the dequant factor (f32
+        bitcast into 2 int16), so the scale rides the same transfer.
+        Works on (n, 2) blocks and (d, n, 2) mesh shard stacks alike (one
+        shared scale, one row a shard)."""
+        if not self._h2d_int16:
+            return x
+        x = np.asarray(x, np.float32)
+        # min/max instead of abs(x).max(): no |x| temporary, and the peak
+        # normalization bounds |q| <= 32000, so no clip before the cast
+        peak = float(max(x.max(initial=0.0), -x.min(initial=0.0)))
+        scale = 32000.0 / peak if peak > 0.0 else 1.0
+        inv_row = np.frombuffer(
+            np.float32(1.0 / scale).tobytes(), np.int16).reshape(1, 2)
+        q32 = x * scale
+        np.rint(q32, out=q32)
+        q = q32.astype(np.int16)
+        if x.ndim == 3:                      # (d, n, 2) shard stack
+            rows = np.broadcast_to(inv_row[None], (x.shape[0], 1, 2))
+            return np.concatenate([rows, q], axis=1)
+        return np.concatenate([inv_row, q], axis=0)
+
+    def _dequant(self, z):
+        """Device side of _quant: (n + 1, 2) int16 -> (n, 2) float32."""
+        if not self._h2d_int16:
+            return z
+        inv = z[0].contiguous().view(torch.float32)
+        return z[1:].to(torch.float32) * inv
 
     # --- streamed ingest -------------------------------------------------
 
@@ -367,11 +445,34 @@ class WidebandReceiver:
         if self._k0 < 0:
             raise ValueError(f"RRC history too short ({k_min1}, {self._hist})")
         self._k_span = w.shape[1]
-        self._w_t = torch.as_tensor(w.T.copy(), device=dev)  # (k_span, n)
-        self._state = (
-            torch.zeros((self._halo_len, 2), device=dev),
-            torch.zeros((m, self._hist, 2), device=dev),
-            torch.zeros((m, self.T_tail, 2), device=dev))
+        w_t = w.T.copy()                                     # (k_span, n)
+        devs = (dev,) if self.mesh is None else self.mesh.devices
+        # keyed by the tensor's own device ("cuda:0" where dev is "cuda")
+        self._w_t = {str(w.device): w for w in
+                     (torch.as_tensor(w_t, device=d) for d in devs)}
+        if self.mesh is None:
+            self._state = (
+                torch.zeros((self._halo_len, 2), device=dev),
+                torch.zeros((m, self._hist, 2), device=dev),
+                torch.zeros((m, self.T_tail, 2), device=dev))
+        else:
+            # carrier-sharded state on each device; the raw halo tail
+            # stays on the host, which builds the overlapped shards
+            d = self.mesh.size
+            r_local = self.R_b // d
+            if m % d or self.R_b % d or r_local % 2:
+                raise ValueError(f"a mesh of {d} devices needs M ({m}) and "
+                                 f"the block's rows ({self.R_b}) to divide "
+                                 "by it and an even shard row count (the "
+                                 "2x-oversample sign restarts at each "
+                                 "shard's row 0)")
+            self.ici_bytes_per_block = ici_bytes_per_step(ana, r_local, d)
+            self._htail = np.zeros((self._halo_len, 2), np.float32)
+            self._state = (
+                [torch.zeros((m // d, self._hist, 2), device=d_)
+                 for d_ in devs],
+                [torch.zeros((m // d, self.T_tail, 2), device=d_)
+                 for d_ in devs])
         # each wide channel: a streamed synthesizer over the block's bank
         # rows, a BoundedStream and an incrementally driven per-carrier
         # Receiver, so wide carriers decode DURING the block loop with
@@ -396,14 +497,18 @@ class WidebandReceiver:
         m = xw.shape[0]
         # one 2-D GEMM over (M*F*2, k_span) rows: matmul on the 4-D
         # window view runs as a batched product on a far slower path
-        s = (xw.reshape(-1, self._k_span) @ self._w_t).view(
+        s = (xw.reshape(-1, self._k_span) @ self._w_t[str(xw.device)]).view(
             m, f_cnt, 2, -1)                              # (M, F, 2, n)
         return s.transpose(2, 3).reshape(m, self.S_b, 2)
 
-    def _step(self, x, halo, bank_hist, stream_tail):
-        """One ingest step: (new samples, carried state) -> (streams, the
-        block's bank rows (M, R_b, 2), next state)."""
-        blk = torch.cat([halo, x])
+    def _step(self, x, *state):
+        """One ingest step: (the put block, carried state) -> (streams,
+        the block's bank rows (M, R_b, 2), next state); in mesh mode both
+        are ShardedRows."""
+        if self.mesh is not None:
+            return self._sstep(x, *state)
+        halo, bank_hist, stream_tail = state
+        blk = torch.cat([halo, self._dequant(x)])
         rows = self.chz.analyzer.block(blk).permute(1, 0, 2)   # (M, R_b, 2)
         rows_full = torch.cat([bank_hist, rows], dim=1)
         stream = torch.cat([stream_tail, self._resample(rows_full)], dim=1)
@@ -411,12 +516,38 @@ class WidebandReceiver:
                               rows_full[:, -self._hist:],
                               stream[:, -self.T_tail:])
 
+    def _sstep(self, shards, bank_hist, stream_tail):
+        """Mesh ingest step (gmr1_tpu/rx/wideband.py:672-680): the shared
+        ingest (parallel/ingest.py) gives each device its carriers' rows,
+        which it resamples into its own stream buffer."""
+        rows = analyze_reshard(self.chz.analyzer, self.mesh,
+                               [self._dequant(s) for s in shards])
+        streams, hist, tail = [], [], []
+        for r, bh, st in zip(rows, bank_hist, stream_tail):
+            rows_full = torch.cat([bh, r], dim=1)
+            s = torch.cat([st, self._resample(rows_full)], dim=1)
+            streams.append(s)
+            hist.append(rows_full[:, -self._hist:])
+            tail.append(s[:, -self.T_tail:])
+        return ShardedRows(streams), ShardedRows(rows), (hist, tail)
+
     def _put(self, x):
-        """A block on the device: host arrays are uploaded, tensors (the
-        pre-resampler's blocks are already there) pass through."""
+        """A block on the device: host arrays are uploaded (int16-quantized
+        under h2d_dtype="int16"), tensors (the pre-resampler's blocks are
+        already there) pass through.  Mesh mode: the overlapped shard
+        stack from the host-carried halo tail, in float32, then quantized
+        with one shared scale, one shard on each device."""
+        if self.mesh is not None:
+            if isinstance(x, torch.Tensor):
+                x = x.cpu().numpy()
+            sh, self._htail = overlapped_shards(
+                np.asarray(x, np.float32), self._htail, self._halo_len,
+                self.mesh.size)
+            return self.mesh.put(self._quant(sh))
         if isinstance(x, torch.Tensor):
             return x.to(self.device)
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(self._quant(x))).to(
+            self.device)
 
     def _rotate_x(self, x: np.ndarray, n0: int) -> np.ndarray:
         """Grid pre-rotation with exact float64 phase from absolute
@@ -475,10 +606,12 @@ class WidebandReceiver:
         2) and self._buf0 (absolute output sample of buffer index 0), and
         feeds every wide channel's synthesizer into its stream."""
         t = time.perf_counter()
-        self.streams, rows, self._state = self._step(self._next_put_block(),
+        self._last_put = self._next_put_block()
+        self.streams, rows, self._state = self._step(self._last_put,
                                                      *self._state)
         for ws, bs in zip(self._wide, self._wide_streams):
-            bs.feed(ws.feed(rows))
+            bs.feed(ws.feed_cols(rows.take(ws.cols))
+                    if isinstance(rows, ShardedRows) else ws.feed(rows))
         self._buf0 = b * self.S_b - self.T_tail
         self._tick("ingest", t)
 
@@ -793,6 +926,7 @@ class WidebandReceiver:
         # runs before any fetch; rare same-block activations / realigns
         # re-run a small correction phase for just those carriers
         mb = self._build_meta(active_ids, F)
+        self._last_meta = mb
         n = len(cars)
         if self._il is None or self._il.buf.shape[0] != n:
             self._il = InterleaverState(
@@ -1236,6 +1370,34 @@ class WidebandReceiver:
             self._log(f"[+] wide {ch}: {len(rxw.frames)} L2 frames")
 
     # --- top level --------------------------------------------------------
+
+    def device_block_time(self, iters: int = 4) -> float:
+        """Seconds a block of the ingest step plus the block phase, re-run
+        on the resident state after run(): the receiver's throughput with
+        the host reads, uploads and walks out of the picture.  One warm
+        call, then `iters` calls between device synchronizations (on the
+        CPU the same calls, timed)."""
+        if self._last_put is None or self._last_meta is None:
+            raise RuntimeError("run() first")
+        meta = self._meta_dev(self._last_meta)
+        devs = {str(d) for d in (self.mesh.devices if self.mesh is not None
+                                 else (self.device,))}
+
+        def sync():
+            for d in devs:
+                if torch.device(d).type == "cuda":
+                    torch.cuda.synchronize(d)
+
+        def once():
+            streams, _rows, _state = self._step(self._last_put, *self._state)
+            return _phase_block(streams, meta, self._il, self.kc, self.sps)
+        once()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            once()
+        sync()
+        return (time.perf_counter() - t0) / iters
 
     def run(self) -> int:
         """Acquire + decode the whole capture.  Returns #L2 frames."""

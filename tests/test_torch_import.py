@@ -34,11 +34,18 @@ import importlib, pkgutil, sys
 import gmr1_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gmr1_tpu_torch.__path__,
                                                 "gmr1_tpu_torch.")]
-# the entry points (the receiver, the vocoder and their CLI modules) and
-# every L1 coder
+# the entry points (the receiver, the vocoder, the channelizer and their
+# CLI modules, the tools), every L1 coder and the multi-device form
 for n in ("gmr1_tpu_torch.rx", "gmr1_tpu_torch.rx.__main__",
           "gmr1_tpu_torch.codec", "gmr1_tpu_torch.codec.__main__",
-          "gmr1_tpu_torch.l1.xch_dc12", "gmr1_tpu_torch.l1.rach"):
+          "gmr1_tpu_torch.l1.xch_dc12", "gmr1_tpu_torch.l1.rach",
+          "gmr1_tpu_torch.parallel", "gmr1_tpu_torch.parallel.ingest",
+          "gmr1_tpu_torch.parallel.transponder",
+          "gmr1_tpu_torch.channelizer.ddc",
+          "gmr1_tpu_torch.channelizer.__main__",
+          "gmr1_tpu_torch.tools.gmr1_gen_mat",
+          "gmr1_tpu_torch.tools.gmr1_rach_gen",
+          "gmr1_tpu_torch.tools.gmr1_process_recording"):
     assert n in names, n
 for n in names:
     importlib.import_module(n)
@@ -55,7 +62,7 @@ def test_port_imports_without_jax():
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[0]) >= 20
+    assert int(res.stdout.split()[0]) >= 30
 
 
 def test_sources_name_no_jax():
@@ -137,13 +144,38 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_unported_options_raise():
-    """`mesh` and int16 ingest are the JAX options left unported (multi-
-    beam, wide channels and off-grid rates are ported); the CLI offers
-    float32 ingest only."""
+    """Every option of the JAX receiver is ported now (mesh and int16
+    ingest since the multi-device slice): what still raises is what JAX
+    refuses too, an unknown ingest dtype, int16 ingest at an off-grid
+    rate, and an unknown CLI dtype."""
     wb = np.zeros((16, 2), np.float32)
-    for kw in (dict(mesh=object()), dict(h2d_dtype="int16")):
-        with pytest.raises(NotImplementedError):
-            WidebandReceiver(wb, 500e3, 1525e6 + 31250.0 * 500, **kw)
+    for fs, kw in ((500e3, dict(h2d_dtype="int8")),
+                   (530e3, dict(h2d_dtype="int16"))):
+        with pytest.raises(ValueError):
+            WidebandReceiver(wb, fs, 1525e6 + 31250.0 * 500, device="cpu",
+                             **kw)
     with pytest.raises(SystemExit):
         rx_main(["--wideband", "x.cfile", "--fs", "5e5", "--center",
-                 "1.5e9", "--h2d-dtype", "int16", "--device", "cpu"])
+                 "1.5e9", "--h2d-dtype", "int8", "--device", "cpu"])
+
+
+def test_new_entry_points_default_to_cuda(tmp_path, monkeypatch):
+    """The channelizer CLI, the tools and Mesh() run on the card unless
+    told otherwise: without CUDA their defaults raise."""
+    from gmr1_tpu_torch.channelizer.__main__ import main as chz_main
+    from gmr1_tpu_torch.parallel import Mesh
+    from gmr1_tpu_torch.tools import gmr1_gen_mat, gmr1_rach_gen
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    cap = tmp_path / "c.cfile"
+    np.zeros(64, np.complex64).tofile(cap)
+    monkeypatch.chdir(tmp_path)
+    for call in (lambda: chz_main([str(cap), "-s", "5e5", "-f", "1.54e9",
+                                   "-a", "500"]),
+                 lambda: gmr1_gen_mat.main([]),
+                 lambda: gmr1_rach_gen.main([str(tmp_path / "r.cfile"), "1",
+                                             "00" * 18]),
+                 lambda: Mesh()):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert not (tmp_path / "mat_G.pbm").exists()

@@ -79,9 +79,9 @@ def run_both(wb, **kw):
     return jrx, trx
 
 
-@pytest.fixture(scope="module")
-def e2e():
-    """tests/test_wideband.py::wb_e2e's scenario, built inline."""
+def e2e_capture():
+    """tests/test_wideband.py::wb_e2e's scenario, built inline.  Returns
+    (wideband capture, truth dict)."""
     rng = np.random.default_rng(0xBEEF)
     caps = {a: Capture(rng, n_frames=28, noise=0.005)
             for a in (A_BCCH, A_FULL, A_AUX)}
@@ -109,9 +109,14 @@ def e2e():
     cap.place_syms(12, tn9, np.asarray(modem.mod(BU.NT9, e9, sync_id=0)))
     csd = place_csd(cap, rng, tn9, range(13, 18))
     wb = mix_wideband({a: c.buf for a, c in caps.items()}, rng)
+    return wb, dict(speech=speech, fl2=bytes(fl2), f9l2=bytes(f9l2), csd=csd)
+
+
+@pytest.fixture(scope="module")
+def e2e():
+    wb, truth = e2e_capture()
     jrx, trx = run_both(wb)
-    return dict(jrx=jrx, trx=trx, speech=speech, fl2=bytes(fl2),
-                f9l2=bytes(f9l2), csd=csd, wb=wb)
+    return dict(truth, jrx=jrx, trx=trx, wb=wb)
 
 
 @pytest.fixture(scope="module")

@@ -14,7 +14,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..ops import bits, conv, crc, interleave, scramble, viterbi
+from ..ops import bits, consts, conv, crc, interleave, scramble, viterbi
 
 CODE = conv.K5_14
 MSG_BITS = 76
@@ -33,12 +33,16 @@ def _split_idx() -> np.ndarray:
     return inv  # bits_cp = bits_c[inv]
 
 
+def _merge_idx() -> np.ndarray:
+    return _split_idx().argsort()
+
+
 def encode(l2, bits_s, ciph=None):
     """(l2 (...,10)B, status (...,32), ciph (...,384)|None) -> (..., 416)."""
     u = bits.unpack_bits(l2, MSG_BITS)
     c16 = crc.crc_compute(crc.CRC16, u, MSG_BITS)
     enc = conv.encode(CODE, torch.cat([u, c16], dim=-1))     # (..., 384)
-    cp = enc[..., torch.as_tensor(_split_idx(), device=enc.device)]
+    cp = enc[..., consts.table(_split_idx, device=enc.device)]
     cp = cp.reshape(*cp.shape[:-1], 4, 96)
     xmy = scramble.scramble_ubit(interleave.interleave_intra(cp, 12))
     if ciph is not None:
@@ -60,7 +64,7 @@ def decode(ebits, ciph=None):
         xmy = xmy * (1.0 - 2.0 * cb)
     cp = interleave.deinterleave_intra(scramble.scramble_sbit(xmy), 12)
     cp = cp.reshape(*cp.shape[:-2], 384)
-    c = cp[..., torch.as_tensor(_split_idx().argsort(), device=cp.device)]
+    c = cp[..., consts.table(_merge_idx, device=cp.device)]
     u, metric = viterbi.decode(CODE, c, CONV_LEN)
     bad = crc.crc_check(crc.CRC16, u[..., :MSG_BITS], MSG_BITS,
                         u[..., MSG_BITS:CONV_LEN])

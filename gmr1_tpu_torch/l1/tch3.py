@@ -21,7 +21,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..ops import bits, conv, puncture, scramble, viterbi
+from ..ops import bits, consts, conv, puncture, scramble, viterbi
 
 CODE = conv.TCH3_K7
 CONV_LEN = 48
@@ -52,24 +52,31 @@ def _mux_idx(m: int) -> np.ndarray:
     return np.stack([104 * i + j if m else (j << 1) + i for i in range(2)])
 
 
-def _idx(table, like):
-    return torch.as_tensor(table, device=like.device)
+def _perm_half(i: int) -> np.ndarray:
+    return _perm()[i]
+
+
+def _mux_row(m: int, i: int) -> np.ndarray:
+    return _mux_idx(m)[i]
+
+
+def _idx(like, fn, *args):
+    """The index table fn(*args) on like's device (consts.table)."""
+    return consts.table(fn, *args, device=like.device)
 
 
 def encode(frame0, frame1, bits_s, ciph=None, m: int = 0):
     """(frames (...,10)B, status (...,4), cipher (...,208)|None) -> (...,212)."""
-    fwd, _ = _perm()
-    mux = _mux_idx(m)
     parts = []
     for frame in (frame0, frame1):
         d = bits.unpack_bits(frame, 80)
         enc = conv.encode(CODE, d[..., :CONV_LEN])
-        punct = enc[..., _idx(_keep_idx(), enc)]
+        punct = enc[..., _idx(enc, _keep_idx)]
         c = torch.cat([punct, d[..., 48:80]], dim=-1)      # 104
-        parts.append(c[..., _idx(fwd, c)])
+        parts.append(c[..., _idx(c, _perm_half, 0)])
     epp = parts[0].new_zeros((*parts[0].shape[:-1], 208))
-    epp[..., _idx(mux[0], epp)] = parts[0]
-    epp[..., _idx(mux[1], epp)] = parts[1]
+    epp[..., _idx(epp, _mux_row, m, 0)] = parts[0]
+    epp[..., _idx(epp, _mux_row, m, 1)] = parts[1]
     xmy = scramble.scramble_ubit(epp)
     if ciph is not None:
         xmy = xmy ^ bits.like(ciph, xmy)
@@ -85,10 +92,9 @@ def decode(ebits, ciph=None, m: int = 0):
     if ciph is not None:
         xmy = xmy * (1.0 - 2.0 * bits.like(ciph, xmy))
     epp = scramble.scramble_sbit(xmy)
-    _, kep = _perm()
     # (..., 2, 104): frame i's bits, permutation undone
-    c = epp[..., _idx(_mux_idx(m), epp)][..., _idx(kep, epp)]
-    full = viterbi.depuncture(c[..., :72], _keep_idx(),
+    c = epp[..., _idx(epp, _mux_idx, m)][..., _idx(epp, _perm_half, 1)]
+    full = viterbi.depuncture(c[..., :72], _idx(c, _keep_idx),
                               CODE.out_len(CONV_LEN))
     d, metric = viterbi.decode(CODE, full, CONV_LEN)    # one batch, 2 frames
     tail = (c[..., 72:104] < 0).to(torch.uint8)

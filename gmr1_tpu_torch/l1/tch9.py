@@ -15,7 +15,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..ops import bits, conv, interleave, puncture, scramble, viterbi
+from ..ops import (bits, consts, conv, interleave, puncture, scramble,
+                   viterbi)
 from ..ops.interleave import InterleaverState
 
 IL_N = 81
@@ -62,7 +63,7 @@ def encode(l2, mode: Tch9Mode, bits_sacch, bits_status,
     """One burst. Returns (new_il_state, bits_e (..., 662))."""
     u = bits.unpack_bits(l2, mode.conv_len)
     enc = conv.encode(mode.code, u)
-    c = enc[..., torch.as_tensor(_keep_idx(mode), device=enc.device)]
+    c = enc[..., consts.table(_keep_idx, mode, device=enc.device)]
     ep = interleave.interleave_intra(c, IL_N)
     il, epp = interleave.interleave_inter(il, ep)
     x = scramble.scramble_ubit(epp)
@@ -91,8 +92,9 @@ def _demux(ebits, ciph):
 def _fec(ep, mode: Tch9Mode):
     """Deinterleaved soft bits (..., 648) -> (l2, metric)."""
     c = interleave.deinterleave_intra(ep, IL_N)
-    full = viterbi.depuncture(c, _keep_idx(mode),
-                              mode.code.out_len(mode.conv_len))
+    full = viterbi.depuncture(
+        c, consts.table(_keep_idx, mode, device=c.device),
+        mode.code.out_len(mode.conv_len))
     u, metric = viterbi.decode(mode.code, full, mode.conv_len)
     return bits.pack_bits(u, mode.l2_bytes), metric
 

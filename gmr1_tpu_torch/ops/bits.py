@@ -10,7 +10,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import consts
+
 _SHIFTS = np.arange(7, -1, -1, dtype=np.uint8)  # MSB first
+
+
+def _shifts(dtype: str) -> np.ndarray:
+    return _SHIFTS.astype(dtype)
 
 
 def _u8(x) -> torch.Tensor:
@@ -22,7 +28,7 @@ def _u8(x) -> torch.Tensor:
 def unpack_bits(data, nbits: int | None = None):
     """Unpack bytes (..., B) -> bits (..., 8*B or nbits), MSB first."""
     data = _u8(data)
-    sh = torch.as_tensor(_SHIFTS, device=data.device)
+    sh = consts.table(_shifts, "uint8", device=data.device)
     bits = (data[..., :, None] >> sh) & 1
     bits = bits.reshape(*data.shape[:-1], data.shape[-1] * 8)
     return bits if nbits is None else bits[..., :nbits]
@@ -38,7 +44,7 @@ def pack_bits(bits, nbytes: int | None = None):
     if pad:
         bits = torch.nn.functional.pad(bits, (0, pad))
     bits = bits.reshape(*bits.shape[:-1], nb, 8).to(torch.int32)
-    sh = torch.as_tensor(_SHIFTS.astype(np.int32), device=bits.device)
+    sh = consts.table(_shifts, "int32", device=bits.device)
     return torch.sum(bits << sh, dim=-1).to(torch.uint8)
 
 

@@ -14,6 +14,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from . import consts
+
 # every float32 matrix product here must be real float32 (TF32 keeps
 # about three decimal digits, the CUDA form of the XLA default-precision
 # trap noted at gmr1_tpu/channelizer/pfb.py:75-78)
@@ -130,8 +132,8 @@ def dft(x, inverse: bool = False):
 
     Matches np.fft.fft (no normalization; inverse carries 1/N)."""
     n = x.shape[-2]
-    w = torch.as_tensor(_dft_matrix(n, 1.0 if inverse else -1.0),
-                        device=x.device)
+    w = consts.table(_dft_matrix, n, 1.0 if inverse else -1.0,
+                     device=x.device)
     xr, xi = x[..., 0], x[..., 1]
     wr, wi = w[..., 0], w[..., 1]
     yr = xr @ wr - xi @ wi

@@ -15,6 +15,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from . import consts
+
 # full float32 matmuls, as everywhere in the port (TF32 rounds the
 # operands to 10 mantissa bits)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -57,8 +59,8 @@ def _gen_matrix(bits: int, poly: int, msg_len: int) -> np.ndarray:
 def crc_compute(code: CrcCode, bits, msg_len: int):
     """CRC over bits (..., msg_len) -> (..., code.bits) uint8."""
     bits = torch.as_tensor(bits)
-    a = torch.as_tensor(_gen_matrix(code.bits, code.poly, msg_len),
-                        device=bits.device)
+    a = consts.table(_gen_matrix, code.bits, code.poly, msg_len,
+                     device=bits.device)
     x = bits[..., :msg_len].to(torch.float32)
     return (torch.remainder(x @ a, 2.0)).to(torch.uint8)
 

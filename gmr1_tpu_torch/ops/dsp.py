@@ -32,16 +32,20 @@ def sig_normalize(x, decim: int, freq_shift):
     y = x[..., ::decim, :]
     n = y.shape[-2]
     i = torch.arange(n, dtype=torch.float32, device=y.device)
-    shift = torch.as_tensor(freq_shift, dtype=torch.float32,
-                            device=y.device)[..., None]
+    if isinstance(freq_shift, torch.Tensor) or np.ndim(freq_shift):
+        shift = torch.as_tensor(freq_shift, dtype=torch.float32,
+                                device=y.device)[..., None]
+    else:                       # a scalar: a fill, no host-to-device copy
+        shift = torch.full((1,), float(freq_shift), device=y.device)
     y = cplx.mul(y, cplx.expi(shift * i))
     energy = torch.mean(cplx.abs2(y), dim=-1, keepdim=True)
     return y * torch.rsqrt(torch.clamp(energy, min=1e-30))[..., None]
 
 
 def _corr_kernel(ref, device) -> torch.Tensor:
-    """(2 out, 2 in, L) conv1d weights computing conj(ref) * x."""
-    ref = torch.as_tensor(np.asarray(ref, np.float32), device=device)
+    """(2 out, 2 in, L) conv1d weights computing conj(ref) * x; ref is
+    planar (L, 2), a host array or a tensor (consts.table)."""
+    ref = torch.as_tensor(ref, dtype=torch.float32, device=device)
     rr, ri = ref[..., 0], ref[..., 1]
     return torch.stack([torch.stack([rr, ri]), torch.stack([-ri, rr])])
 

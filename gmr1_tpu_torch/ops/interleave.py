@@ -20,6 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import consts
+
 
 @lru_cache(maxsize=None)
 def intra_tables(n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -35,20 +37,24 @@ def intra_tables(n: int) -> tuple[np.ndarray, np.ndarray]:
     return fwd, kep.astype(np.int64)
 
 
-def _take(bits, idx: np.ndarray):
+def _intra_idx(n: int, inverse: int) -> np.ndarray:
+    return intra_tables(n)[inverse]
+
+
+def _take(bits, n: int, inverse: int):
     bits = torch.as_tensor(bits)
-    return torch.index_select(bits, -1,
-                              torch.as_tensor(idx, device=bits.device))
+    return torch.index_select(
+        bits, -1, consts.table(_intra_idx, n, inverse, device=bits.device))
 
 
 def interleave_intra(bits, n: int):
     """Interleave (..., 8n) -> (..., 8n)."""
-    return _take(bits, intra_tables(n)[0])
+    return _take(bits, n, 0)
 
 
 def deinterleave_intra(bits, n: int):
     """Deinterleave (..., 8n) -> (..., 8n)."""
-    return _take(bits, intra_tables(n)[1])
+    return _take(bits, n, 1)
 
 
 class InterleaverState(NamedTuple):

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import consts
+
 _SEED = 0x4D4B
 _MAX_LEN = 1024  # longest scrambled block in GMR-1 L1 is 658 (tch9.c)
 
@@ -36,11 +38,16 @@ def scramble_seq(n: int) -> np.ndarray:
     return _SEQ[:n]
 
 
+def _sign(n: int) -> np.ndarray:
+    return _SIGN[:n]
+
+
 def scramble_ubit(bits):
     """XOR hard bits (..., N) with the scramble sequence."""
     bits = torch.as_tensor(bits)
     n = bits.shape[-1]
-    return bits ^ torch.as_tensor(_SEQ[:n], device=bits.device).to(bits.dtype)
+    return bits ^ consts.table(scramble_seq, n, device=bits.device).to(
+        bits.dtype)
 
 
 def scramble_sbit(sbits):
@@ -48,5 +55,5 @@ def scramble_sbit(sbits):
     (self-inverse, gmr1_scramble_sbit)."""
     sbits = torch.as_tensor(sbits)
     n = sbits.shape[-1]
-    return sbits * torch.as_tensor(_SIGN[:n], device=sbits.device).to(
+    return sbits * consts.table(_sign, n, device=sbits.device).to(
         sbits.dtype)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from . import consts
 from .conv import TERM_FLUSH, ConvCode, encode
 
 # full float32 matmuls, as everywhere in the port (TF32 rounds the
@@ -44,11 +45,17 @@ def _acs_tables(code: ConvCode) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     return p0, p1, sign
 
 
-def depuncture(soft, keep_idx: np.ndarray, out_len: int):
-    """Scatter punctured soft bits (..., P) into erasure zeros (..., out_len)."""
+def _sign_rows(code: ConvCode) -> np.ndarray:
+    return _acs_tables(code)[2].reshape(code.num_states * 2, code.n)
+
+
+def depuncture(soft, keep_idx, out_len: int):
+    """Scatter punctured soft bits (..., P) into erasure zeros (..., out_len).
+    keep_idx: the surviving positions, a host array or a tensor
+    (consts.table)."""
     soft = torch.as_tensor(soft).to(torch.float32)
     out = soft.new_zeros((*soft.shape[:-1], out_len))
-    out[..., torch.as_tensor(np.asarray(keep_idx), device=soft.device)] = soft
+    out[..., torch.as_tensor(keep_idx, device=soft.device)] = soft
     return out
 
 
@@ -134,9 +141,7 @@ def decode(code: ConvCode, soft, in_len: int):
     n = code.n
     t_steps = soft.shape[-1] // n
     batch_shape = soft.shape[:-1]
-    _, _, sign_np = _acs_tables(code)
-    sign = torch.as_tensor(sign_np.reshape(code.num_states * 2, n),
-                           device=soft.device)
+    sign = consts.table(_sign_rows, code, device=soft.device)
     bits, metric = decode_trellis(soft.reshape(-1, t_steps, n), sign,
                                   code.term == TERM_FLUSH)
     return (bits.reshape(*batch_shape, t_steps)[..., :in_len],

@@ -46,13 +46,25 @@ def _check_geometry(chz, mesh: Mesh, n_local: int) -> None:
                          f"of M={m}")
 
 
+def _f32_analyzer(chz):
+    """The channelizer's analysis bank with the float32 channel DFT.  The
+    transponders decode every column, those with no carrier too, and the
+    bf16 DFT table's rounding leaks every column into every other: on the
+    card's noiseless 1064-carrier transponder capture (M=1088) an empty
+    column 53 dB under the carriers decoded a comb's SI1 and passed its
+    CRC (ROADMAP queue 3)."""
+    ana = chz.analyzer
+    return ana.from_numpy(ana.h_poly, ana.chunk_frames, dft_bf16=False)
+
+
 class ShardedTransponder:
     """Carrier + time sharded channelize -> demod -> decode pipeline.
 
     One instance is bound to (mesh, channelizer geometry, burst type,
     samples a device).  `step(x)` takes the time-sharded wideband block
     and returns the decoded frames of every carrier and the summed CRC
-    failures."""
+    failures.  The analysis runs the float32 channel DFT
+    (`self.analyzer`, _f32_analyzer)."""
 
     def __init__(self, chz, mesh: Mesh, n_local: int,
                  burst: BU.Burst = BU.BCCH, sps: int = 4,
@@ -62,7 +74,7 @@ class ShardedTransponder:
         self.n_devices = d = mesh.size
         self.n_local = n_local
         self.burst, self.sps, self.burst_pos = burst, sps, burst_pos
-        ana = chz.analyzer
+        self.analyzer = ana = _f32_analyzer(chz)
         self._rrc = chz._rrc_resampler(1)
         r_total = (n_local // ana.hop) * d
         self._blen = burst.len_syms * sps
@@ -100,7 +112,7 @@ class ShardedTransponder:
         n_bad scalar), on the mesh's first device, rows in carrier
         order."""
         outs = [self._local(b) for b in analyze_reshard(
-            self.chz.analyzer, self.mesh, x_sharded)]
+            self.analyzer, self.mesh, x_sharded)]
         dev = self.mesh.devices[0]
         l2, crc_fail, metric = (torch.cat([o[k].to(dev) for o in outs])
                                 for k in range(3))
@@ -145,7 +157,7 @@ class StreamingTransponder:
                  tn_tch9: int = 8, dkab_p: int = 9, bcch_frame: int = 2):
         sps = 4
         d = mesh.size
-        ana = chz.analyzer
+        self.analyzer = ana = _f32_analyzer(chz)     # as ShardedTransponder
         r_total = frames * self.FRAME_ROWS
         if r_total % d:
             raise ValueError(f"{r_total} rows do not split over {d} devices")
@@ -280,7 +292,7 @@ class StreamingTransponder:
         the frame-major sf0, sf1, dk_bits, dk_found, l2_t9, met9
         (F, M, ...)."""
         res = [self._local(b, c) for b, c in zip(
-            analyze_reshard(self.chz.analyzer, self.mesh, x_sharded), carry)]
+            analyze_reshard(self.analyzer, self.mesh, x_sharded), carry)]
         dev = self.mesh.devices[0]
         outs = [o for o, _c in res]
         out = {k: torch.cat([o[k].to(dev) for o in outs],

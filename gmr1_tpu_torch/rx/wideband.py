@@ -44,6 +44,17 @@ in, every carrier's BCCH, CCCH, TCH3 (speech, FACCH3, DKAB) and TCH9
                a small phase for just those carriers (`_phase_tch3s`,
                `_phase_tch9s`, `_chain_fix`).
 
+  reader       on the single-device streaming path the next block's
+               source read, float64 grid rotation and int16 quantization
+               run on one worker thread while this block's meta build and
+               phase dispatch run (JAX's `_q_start`,
+               gmr1_tpu/rx/wideband.py:724-749); counters and EOF are
+               committed on the main thread when the block is taken.  On
+               the card the worker writes into one of two pinned staging
+               buffers, and the upload is a non-blocking copy on a copy
+               stream that the compute stream waits for; a buffer is
+               written again only once its last copy has finished.
+
 Options of the JAX receiver that change the ingest:
 
   mesh         a `parallel.Mesh`: each block's time shards (the halo
@@ -51,11 +62,16 @@ Options of the JAX receiver that change the ingest:
                one a device and resharded to carrier-sharded rows
                (`analyze_reshard`, bf16 transport); every device resamples
                and keeps the streams of its own carriers (`ShardedRows`).
-               The acquisition passes, the block phase and the correction
-               phases run on the mesh's first device: they gather each
-               carrier's windows on the device that owns its column and
-               move only the windows, and each wide channel reads only
-               its own columns.
+               When the carrier count C divides by the mesh size D, the
+               block phase splits over the carriers
+               (gmr1_tpu/rx/wideband.py:1150-1167): slots [j C/D,
+               (j+1) C/D) form group j, whose phase, TCH9 rings and
+               correction phases run on mesh.devices[j]; otherwise they
+               run on the mesh's first device.  Either way each carrier's
+               windows are gathered on the device that owns its column
+               and only the windows move.  The acquisition passes run on
+               the first device, and each wide channel reads only its own
+               columns.
   h2d_dtype    "int16": each block is peak-normalized and quantized on the
                host with its dequant factor in one leading int16 row (one
                row a shard in mesh mode), halving the upload; it is
@@ -65,6 +81,7 @@ Options of the JAX receiver that change the ingest:
 
 from __future__ import annotations
 
+import concurrent.futures
 import time
 from dataclasses import dataclass, field
 
@@ -77,6 +94,7 @@ from ..channelizer.pfb import Channelizer, StreamPreResampler
 from ..l1 import bcch, ccch, facch3, facch9, tch3, tch9
 from ..ops import a5 as a5op
 from ..ops import cplx
+from ..ops.consts import upload
 from ..ops.interleave import InterleaverState
 from ..parallel.ingest import (ShardedRows, analyze_reshard,
                                ici_bytes_per_step, overlapped_shards)
@@ -92,6 +110,7 @@ from .receiver import (ChanDesc, Receiver, bcch_tdma_align,
 torch.backends.cuda.matmul.allow_tf32 = False   # the RRC window matmul is f32
 
 ROWS_PER_FRAME = 2500     # bank rows per TDMA frame: 936*62500/23400
+QUANT_ROWS = 1 << 16      # int16 quantization pass: a chunk stays in cache
 
 
 def _energy(w):
@@ -235,7 +254,8 @@ def _chain_core(e9, ks, il, sid, flags):
 def _phase_block(streams, m: dict, il, key, sps: int):
     """The whole block for every carrier slot (see the module doc).
     `m` is the block meta on the device.  Returns (small, big): `small`
-    is fetched to the host; `big` (FACCH soft bits, NT9 soft bits and
+    is fetched to the host, every tensor carrier-major (a split mesh's
+    groups concatenate on axis 0); `big` (FACCH soft bits, NT9 soft bits and
     keystreams, the updated rings) stays on the device for the rare
     correction phases."""
     rows, fs, fn0, flags = m["rows"], -m["freq"][:, None], m["fn0"], \
@@ -246,7 +266,8 @@ def _phase_block(streams, m: dict, il, key, sps: int):
                              m["idx_t"], key, sps, ks208=ks[..., :208])
     small.update(s3)
     small.update(s9)
-    il2, small["l2a"] = _chain_core(e9, ks, il, s9["sid9"], flags)
+    il2, l2a = _chain_core(e9, ks, il, s9["sid9"], flags)
+    small["l2a"] = l2a.transpose(0, 1)      # carrier-major, as all of small
     big = dict(f_ebits=f_ebits, e9=e9, ks=ks, il2=il2)
     return small, big
 
@@ -370,13 +391,26 @@ class WidebandReceiver:
         self.wide_carriers: list[_Carrier] = []
         self.frames: list[tuple[int, int, int, int, bytes]] = []
         # device-resident TCH9 deinterleaver rings, one row per carrier
-        # slot (created at the first block, advanced by the block phase)
-        self._il: InterleaverState | None = None
+        # slot, one InterleaverState a carrier group on the group's device
+        # (created at the first block, advanced by the block phase)
+        self._il: list[InterleaverState] | None = None
         self._a5_seen: dict[tuple[int, int], np.ndarray] = {}
         # wall-clock per pipeline section, accumulated across run()
         self.prof: dict[str, float] = {}
+        # the block reader's worker time, one entry a job taken,
+        # accumulated across run() (off the main thread: not a section)
+        self.reader_s: list[float] = []
         self._last_put = None        # the last block put (device_block_time)
         self._last_meta = None       # the last block phase's host meta
+        # the block reader (_q_start): one worker thread while run() runs,
+        # at most one job in flight; on the card two pinned staging
+        # buffers, the copy event of each, and the copy stream
+        self._q_pool: concurrent.futures.ThreadPoolExecutor | None = None
+        self._q_job: concurrent.futures.Future | None = None
+        self._stage: list[torch.Tensor] | None = None
+        self._stage_ev: list = [None, None]
+        self._stage_k = 0
+        self._copy_stream = None
         self._build_ingest()
         self._pre = None
         if self._h2d_int16 and self.chz.pre_resamp is not None:
@@ -393,12 +427,14 @@ class WidebandReceiver:
         self.prof[key] = self.prof.get(key, 0.0) + (t1 - t0)
         return t1
 
-    def _quant(self, x: np.ndarray) -> np.ndarray:
+    def _quant(self, x: np.ndarray, out: np.ndarray | None = None
+               ) -> np.ndarray:
         """Host-side ingest quantization for h2d_dtype=int16: peak-normalize
         the block and prepend one row carrying the dequant factor (f32
         bitcast into 2 int16), so the scale rides the same transfer.
         Works on (n, 2) blocks and (d, n, 2) mesh shard stacks alike (one
-        shared scale, one row a shard)."""
+        shared scale, one row a shard); an (n, 2) block may be written
+        into `out`, (n + 1, 2) int16 (a staging buffer)."""
         if not self._h2d_int16:
             return x
         x = np.asarray(x, np.float32)
@@ -408,13 +444,24 @@ class WidebandReceiver:
         scale = 32000.0 / peak if peak > 0.0 else 1.0
         inv_row = np.frombuffer(
             np.float32(1.0 / scale).tobytes(), np.int16).reshape(1, 2)
-        q32 = x * scale
-        np.rint(q32, out=q32)
-        q = q32.astype(np.int16)
         if x.ndim == 3:                      # (d, n, 2) shard stack
+            q32 = x * scale
+            np.rint(q32, out=q32)
             rows = np.broadcast_to(inv_row[None], (x.shape[0], 1, 2))
-            return np.concatenate([rows, q], axis=1)
-        return np.concatenate([inv_row, q], axis=0)
+            return np.concatenate([rows, q32.astype(np.int16)], axis=1)
+        if out is None:
+            out = np.empty((x.shape[0] + 1, 2), np.int16)
+        out[0] = inv_row[0]
+        # scale, round and narrow chunk by chunk (the same values as
+        # whole-array passes, fewer trips through memory)
+        q32 = np.empty((min(QUANT_ROWS, x.shape[0]), 2), np.float32)
+        for r0 in range(0, x.shape[0], QUANT_ROWS):
+            blk = x[r0:r0 + QUANT_ROWS]
+            q = q32[:blk.shape[0]]
+            np.multiply(blk, scale, out=q)
+            np.rint(q, out=q)
+            np.copyto(out[1 + r0:1 + r0 + blk.shape[0]], q, casting="unsafe")
+        return out
 
     def _dequant(self, z):
         """Device side of _quant: (n + 1, 2) int16 -> (n, 2) float32."""
@@ -449,7 +496,7 @@ class WidebandReceiver:
         devs = (dev,) if self.mesh is None else self.mesh.devices
         # keyed by the tensor's own device ("cuda:0" where dev is "cuda")
         self._w_t = {str(w.device): w for w in
-                     (torch.as_tensor(w_t, device=d) for d in devs)}
+                     (upload(w_t, torch.device(d)) for d in devs)}
         if self.mesh is None:
             self._state = (
                 torch.zeros((self._halo_len, 2), device=dev),
@@ -546,12 +593,58 @@ class WidebandReceiver:
             return self.mesh.put(self._quant(sh))
         if isinstance(x, torch.Tensor):
             return x.to(self.device)
-        return torch.from_numpy(np.ascontiguousarray(self._quant(x))).to(
-            self.device)
+        if self.device.type != "cuda":
+            return torch.from_numpy(np.ascontiguousarray(self._quant(x)))
+        k = self._stage_next()
+        self._stage_fill(k, x)
+        return self._stage_upload(k)
+
+    def _stage_next(self) -> int:
+        """The next pinned staging buffer (they alternate), allocated at
+        the first call: float32 (n_block, 2), or int16 (n_block + 1, 2)
+        under h2d_dtype="int16".  Main thread only."""
+        if self._stage is None:
+            shape = (self.n_block + int(self._h2d_int16), 2)
+            dt = torch.int16 if self._h2d_int16 else torch.float32
+            self._stage = [torch.empty(shape, dtype=dt, pin_memory=True)
+                           for _ in range(2)]
+            self._copy_stream = torch.cuda.Stream(self.device)
+        k = self._stage_k
+        self._stage_k ^= 1
+        return k
+
+    def _stage_fill(self, k: int, x: np.ndarray) -> None:
+        """Write the host block x (int16-quantized under h2d_dtype="int16")
+        into staging buffer k once buffer k's last copy to the device has
+        finished (the worker calls this)."""
+        ev = self._stage_ev[k]
+        if ev is not None:
+            ev.synchronize()
+        if self._h2d_int16:
+            self._quant(x, out=self._stage[k].numpy())
+        else:
+            np.copyto(self._stage[k].numpy(), x)
+
+    def _stage_upload(self, k: int) -> torch.Tensor:
+        """Staging buffer k on the device: a non-blocking copy on the copy
+        stream, whose event the compute stream waits for; the device
+        tensor is recorded on the compute stream, so the allocator keeps
+        it until the compute stream is done with it."""
+        cur = torch.cuda.current_stream(self.device)
+        host = self._stage[k]
+        with torch.cuda.stream(self._copy_stream):
+            x = torch.empty(host.shape, dtype=host.dtype, device=self.device)
+            x.copy_(host, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(self._copy_stream)
+        self._stage_ev[k] = ev
+        cur.wait_event(ev)
+        x.record_stream(cur)
+        return x
 
     def _rotate_x(self, x: np.ndarray, n0: int) -> np.ndarray:
         """Grid pre-rotation with exact float64 phase from absolute
-        sample offset n0."""
+        sample offset n0 (pure: the reader's worker calls it)."""
         if not (self._rotate and x.shape[0]):
             return x
         ph = self.chz.rotation * (
@@ -575,12 +668,52 @@ class WidebandReceiver:
         if self._pre is not None:
             x, nv = self._pre.produce_block()
             return x, int(nv)
-        x = self._pull(self.n_block)
+        return self._pad(self._pull(self.n_block))
+
+    def _pad(self, x: np.ndarray) -> tuple[np.ndarray, int]:
+        """(x zero-padded to n_block samples, its valid count)."""
         nv = x.shape[0]
         if nv < self.n_block:
             x = np.concatenate(
                 [x, np.zeros((self.n_block - nv, 2), np.float32)])
         return x, nv
+
+    def _q_start(self) -> None:
+        """Submit the NEXT block's host work (source read, rotation, int16
+        quantization; on the card also the write into a staging buffer)
+        to the worker thread, to overlap this block's meta build and
+        phase dispatch (gmr1_tpu/rx/wideband.py:724-749).  Only the
+        single-device streaming path offloads: no mesh, no pre-resampler,
+        no acquisition block left to replay, not at EOF, no job in flight.
+        The counters and EOF are committed on the main thread when the
+        job is taken (_next_put_block)."""
+        if (self._q_job is not None or self.mesh is not None
+                or self._pre is not None or self._replay_dev or self._eof):
+            return
+        if self._q_pool is None:
+            self._q_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="gmr1-block-reader")
+        n0, n = self._n_pulled, self.n_block
+        k = self._stage_next() if self.device.type == "cuda" else None
+
+        def work():
+            t = time.perf_counter()
+            x, nv = self._pad(self._rotate_x(
+                np.asarray(self._src.read(n), np.float32), n0))
+            if k is None:
+                x = self._quant(x)
+            else:
+                self._stage_fill(k, x)
+                x = k
+            return x, nv, time.perf_counter() - t
+        self._q_job = self._q_pool.submit(work)
+
+    def _q_stop(self) -> None:
+        """Shut the worker down (run() returns or raises); a job still in
+        flight is cancelled or waited for, and its block dropped."""
+        if self._q_pool is not None:
+            self._q_pool.shutdown(wait=True, cancel_futures=True)
+        self._q_pool = self._q_job = None
 
     def _pin_eof(self, n_valid: int) -> None:
         """A short block pins the stream length (EOF)."""
@@ -591,9 +724,19 @@ class WidebandReceiver:
 
     def _next_put_block(self):
         """Next block on the device: the acquisition replay list first,
-        then the source."""
+        then the reader's job (_q_start), then the source.  A worker's
+        exception raises here."""
         if self._replay_dev:
             x, nv = self._replay_dev.pop(0)
+        elif self._q_job is not None:
+            job, self._q_job = self._q_job, None
+            t = time.perf_counter()
+            x, nv, busy = job.result()
+            self._tick("ingest_wait", t)
+            self.reader_s.append(busy)
+            self._n_pulled += nv
+            x = torch.from_numpy(x) if self.device.type != "cuda" \
+                else self._stage_upload(x)
         else:
             x, nv = self._pull_block()
             x = self._put(x)
@@ -635,22 +778,60 @@ class WidebandReceiver:
         if self.sink is not None:
             self.sink.send(chan_type, fn, tn, l2b, arfcn=car.arfcn)
 
-    def _fetch_start(self, tensors: dict):
-        """Start the device-to-host copies of `tensors`; returns the
-        handle `_fetch_wait` takes."""
-        host = {k: v.to("cpu", non_blocking=True) for k, v in tensors.items()}
-        ev = None
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event()
-            ev.record()
-        return host, ev
+    @staticmethod
+    def _fetch_start(parts: list[dict]):
+        """Start the device-to-host copies of `parts`, one dict of tensors
+        a carrier group, each on its own device; returns the handle
+        `_fetch_wait` takes (one event a device)."""
+        host = [{k: v.to("cpu", non_blocking=True) for k, v in p.items()}
+                for p in parts]
+        evs = []
+        for dev in {v.device for p in parts for v in p.values()}:
+            if dev.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                evs.append(ev)
+        return host, evs
 
     @staticmethod
     def _fetch_wait(handle) -> dict:
-        host, ev = handle
-        if ev is not None:
+        """The fetched arrays, the groups' parts concatenated in order on
+        axis 0 (every fetched result is carrier-major)."""
+        host, evs = handle
+        for ev in evs:
             ev.synchronize()
-        return {k: v.numpy() for k, v in host.items()}
+        return {k: np.concatenate([h[k].numpy() for h in host])
+                for k in host[0]}
+
+    @staticmethod
+    def _in_order(res: dict, pos_lists) -> dict:
+        """Results of a carrier subset fetched group by group (positions
+        pos_lists in the subset) -> in the subset's order."""
+        inv = np.argsort(np.concatenate(pos_lists))
+        return {k: v[inv] for k, v in res.items()}
+
+    def _groups(self) -> list[tuple[torch.device, int, int]]:
+        """The carrier-slot groups of the block phase, [(device, first
+        slot, end slot)]: one a mesh device when the slot count divides by
+        the mesh size (gmr1_tpu/rx/wideband.py:1150-1167), else a single
+        group on self.device."""
+        n = len(self.carriers)
+        if self.mesh is None or n % self.mesh.size:
+            return [(self.device, 0, n)]
+        per = n // self.mesh.size
+        return [(d, j * per, (j + 1) * per)
+                for j, d in enumerate(self.mesh.devices)]
+
+    def _by_group(self, cars, slot: dict) -> list:
+        """A carrier subset split by group: [(group index, device,
+        positions in cars, local slots)], groups in order."""
+        out = []
+        for j, (dev, lo, hi) in enumerate(self._groups()):
+            pos = [i for i, c in enumerate(cars) if lo <= slot[id(c)] < hi]
+            if pos:
+                out.append((j, dev, pos, [slot[id(cars[i])] - lo
+                                          for i in pos]))
+        return out
 
     # --- acquisition ---------------------------------------------------
 
@@ -742,19 +923,18 @@ class WidebandReceiver:
                 if not grp:
                     continue
                 base = b * self.S_b - self.T_tail
-                cols = torch.as_tensor([cand[ci][0] for ci in grp],
-                                       device=self.device)
-                starts = torch.as_tensor([[cand[ci][2] - base] for ci in grp],
-                                         device=self.device)
+                cols = upload(np.asarray([cand[ci][0] for ci in grp]),
+                               self.device)
+                starts = upload(np.asarray([[cand[ci][2] - base]
+                                             for ci in grp]), self.device)
                 w3_parts.append(_windows_rows(buf, cols, starts, wlen)[:, 0])
                 order += grp
-            w3 = torch.cat(w3_parts)[torch.as_tensor(
-                np.argsort(order), device=self.device)]
-            off = torch.as_tensor([int(toa_r[c, k]) - s0
-                                   for c, k, s0 in cand], device=self.device)
-            got = self._fetch_wait(self._fetch_start(dict(zip(
+            w3 = torch.cat(w3_parts)[upload(np.argsort(order), self.device)]
+            off = upload(np.asarray([int(toa_r[c, k]) - s0
+                                      for c, k, s0 in cand]), self.device)
+            got = self._fetch_wait(self._fetch_start([dict(zip(
                 ("rel", "ferr", "snr"),
-                _acq_fine_snr(ft, w3, off, sps, blen)))))
+                _acq_fine_snr(ft, w3, off, sps, blen)))]))
             for ci, (c, k, s0) in enumerate(cand):
                 toa[c, k] = s0 + int(got["rel"][ci])
                 ferr[c, k] = float(got["ferr"][ci])
@@ -895,9 +1075,11 @@ class WidebandReceiver:
     _DEV_META = ("rows", "freq", "fn0", "p", "flags", "idx_b", "idx_c",
                  "idx_t", "idx_9", "idx")
 
-    def _meta_dev(self, m: dict) -> dict:
-        """The device half of a meta dict."""
-        return {k: torch.as_tensor(v, device=self.device)
+    def _meta_dev(self, m: dict, device, lo: int = 0,
+                  hi: int | None = None) -> dict:
+        """The device half of a meta dict, its carrier rows [lo, hi) (a
+        carrier group), on `device`."""
+        return {k: upload(v[lo:hi], device)
                 for k, v in m.items() if k in self._DEV_META}
 
     def _a5(self, fn: int, nbits: int) -> np.ndarray:
@@ -914,7 +1096,8 @@ class WidebandReceiver:
 
     def _process_block(self, active: list[_Carrier], prefetch) -> None:
         t = time.perf_counter()
-        sps, F, dev = self.sps, self.block_frames, self.device
+        self._q_start()     # the next block's read overlaps this one's
+        sps, F = self.sps, self.block_frames
         frame_len = self.frame_out
         cars = self.carriers
         slot = {id(c): i for i, c in enumerate(cars)}
@@ -924,19 +1107,28 @@ class WidebandReceiver:
         # everything depends only on block-boundary channel state, so the
         # whole block (control + TCH3 + NT9 + CSD chain over the rings)
         # runs before any fetch; rare same-block activations / realigns
-        # re-run a small correction phase for just those carriers
+        # re-run a small correction phase for just those carriers.  A
+        # split mesh runs it once a carrier group, on the group's device,
+        # over the group's own rings
         mb = self._build_meta(active_ids, F)
         self._last_meta = mb
-        n = len(cars)
-        if self._il is None or self._il.buf.shape[0] != n:
-            self._il = InterleaverState(
-                buf=torch.zeros((n, tch9.INTER_DEPTH, tch9.INTER_WIDTH),
-                                device=dev),
-                n=torch.zeros((n,), dtype=torch.int64, device=dev))
+        groups = self._groups()
+        sizes = [hi - lo for _, lo, hi in groups]
+        if self._il is None or [il.n.shape[0] for il in self._il] != sizes:
+            self._il = [InterleaverState(
+                buf=torch.zeros((hi - lo, tch9.INTER_DEPTH,
+                                 tch9.INTER_WIDTH), device=d),
+                n=torch.zeros((hi - lo,), dtype=torch.int64, device=d))
+                for d, lo, hi in groups]
         il_prev = self._il
-        small, big = _phase_block(self.streams, self._meta_dev(mb), il_prev,
-                                  self.kc, sps)
-        handle = self._fetch_start(small)
+        smalls, bigs = [], []
+        for (d, lo, hi), il in zip(groups, il_prev):
+            small, big = _phase_block(self.streams,
+                                      self._meta_dev(mb, d, lo, hi), il,
+                                      self.kc, sps)
+            smalls.append(small)
+            bigs.append(big)
+        handle = self._fetch_start(smalls)
         t = self._tick("phase", t)
         # the next block's ingest is queued behind this block's phase:
         # its host read and upload overlap the phase on the device
@@ -1014,20 +1206,29 @@ class WidebandReceiver:
         if cars3:
             rows3 = np.fromiter((slot[id(c)] for c in cars3), np.int64,
                                 len(cars3))
-            fev += self._walk_tch3_vec(cars3, rows3, res, {}, F,
-                                       big["f_ebits"])
+            fev += self._walk_tch3_vec(
+                cars3, rows3, res, {}, F,
+                [(bigs[j]["f_ebits"], r)
+                 for j, r in (divmod(int(i), sizes[0]) for i in rows3)])
         supp = tch3_new + [
             c for c in active
             if pre3[id(c)][0] and id(c) not in new_ids
             and c.cd.align != pre3[id(c)][1] and c.cd.tch3.active]
         if supp:
-            s3, feb_s = _phase_tch3s(
-                self.streams,
-                self._meta_dev(self._build_sub_meta(supp, "tch3", F)),
-                self.kc, sps)
-            res_s = self._fetch_wait(self._fetch_start(s3))
+            parts, f_src = [], [None] * len(supp)
+            for _j, d, pos, _local in self._by_group(supp, slot):
+                s3, feb = _phase_tch3s(
+                    self.streams, self._meta_dev(self._build_sub_meta(
+                        [supp[i] for i in pos], "tch3", F), d),
+                    self.kc, sps)
+                parts.append((pos, s3))
+                for r, i in enumerate(pos):
+                    f_src[i] = (feb, r)
+            res_s = self._in_order(
+                self._fetch_wait(self._fetch_start([p for _, p in parts])),
+                [pos for pos, _ in parts])
             fev += self._walk_tch3_vec(supp, np.arange(len(supp)), res_s,
-                                       tch3_from, F, feb_s)
+                                       tch3_from, F, f_src)
         jobs = self._facch_collect(fev)
         t = self._tick("walk_tch3", t)
 
@@ -1074,10 +1275,9 @@ class WidebandReceiver:
                 resets.append(1 if assigned else 0)
                 fix_bound[id(c)] = -1 << 62
         self._tch9_emit_main(active, slot, mb, res, fix_bound, pre9)
+        self._il = [big["il2"] for big in bigs]
         if fix9:
-            self._tch9_fix(fix9, resets, slot, il_prev, big["il2"], F)
-        else:
-            self._il = big["il2"]
+            self._tch9_fix(fix9, resets, slot, il_prev, F)
         t = self._tick("tch9", t)
 
         # ---- advance block -----------------------------------------------
@@ -1098,14 +1298,14 @@ class WidebandReceiver:
 
     # --- TCH3 host FSM (gmr1_rx.c:356-600 over batched results) ---------
 
-    def _walk_tch3_vec(self, tch3_set, rows, res, tch3_from, F, f_ebits):
+    def _walk_tch3_vec(self, tch3_set, rows, res, tch3_from, F, f_src):
         """TCH3 FSM walk: the energy gates, DKAB/weak counting and EMA
         trackers (gmr1_rx.c:531-600) as whole-array numpy per frame,
         per-carrier Python only on events.  Speech is already decoded;
         this walk selects it.  FACCH bursts come back as events for the
-        deferred soft-bit gather (_facch_collect) from `f_ebits`, the
-        device-resident (C', F, 104) tensor; `rows` maps a tch3_set
-        position to its result row."""
+        deferred soft-bit gather (_facch_collect): f_src[i] is
+        (device-resident (C', F, 104) soft-bit tensor, row) of tch3_set
+        position i; `rows` maps a position to its result row."""
         n = len(tch3_set)
         rows = np.asarray(rows)
         act = np.fromiter((c.cd.tch3.active for c in tch3_set), bool, n)
@@ -1161,7 +1361,7 @@ class WidebandReceiver:
             r = rows[i]
             tch3_set[i].speech.append(res["s_f0"][r, f].tobytes())
             tch3_set[i].speech.append(res["s_f1"][r, f].tobytes())
-        return [(tch3_set[i], f_ebits, int(rows[i]), fev[i])
+        return [(tch3_set[i], *f_src[i], fev[i])
                 for i in range(n) if fev[i]]
 
     def _facch_collect(self, fev):
@@ -1177,8 +1377,7 @@ class WidebandReceiver:
             items.extend((row, f) for f, _fn, _s in evs)
         got = {}
         for tid, (tensor, items) in by_src.items():
-            ij = torch.as_tensor(items, dtype=torch.int64,
-                                 device=tensor.device)
+            ij = upload(np.asarray(items, np.int64), tensor.device)
             rows = tensor[ij[:, 0], ij[:, 1]].cpu().numpy()
             got[tid] = dict(zip(items, rows))
         jobs = []
@@ -1222,8 +1421,8 @@ class WidebandReceiver:
         ciph = np.zeros((2 * n, 384), np.uint8)
         ciph[n:] = np.stack([j["ciph"] for j in jobs])
         l2, _sbits, bad, _m = facch3.decode(
-            torch.as_tensor(np.concatenate([eb, eb]), device=self.device),
-            torch.as_tensor(ciph, device=self.device))
+            upload(np.concatenate([eb, eb]), self.device),
+            upload(ciph, self.device))
         return (l2.cpu().numpy(), bad.cpu().numpy()), n
 
     def _walk_facch(self, jobs, res, n: int) -> None:
@@ -1282,23 +1481,29 @@ class WidebandReceiver:
                                    gsmtap.GMR1_TCH9 | gsmtap.GMR1_FACCH,
                                    int(fns[i, f]), tn, res["l2f9"][i, f])
                 else:
-                    l2 = res["l2a"][f, i]
+                    l2 = res["l2a"][i, f]
                     self._emit(car, gsmtap.GMR1_TCH9, int(fns[i, f]),
                                tn, l2)
                     car.csd.append(l2.tobytes())
 
-    def _tch9_fix(self, fix9, resets, slot, il_prev, il2, F: int) -> None:
+    def _tch9_fix(self, fix9, resets, slot, il_prev, F: int) -> None:
         """Correction pass for carriers whose TCH9 state changed during
         the walks: re-demodulate their NT9 windows with the updated
         state, emit FACCH9 from the fresh results, and re-run the CSD
         chain for just their ring rows from the pre-block rings
-        (_chain_fix), written into the post-block rings."""
+        (_chain_fix), written into the post-block rings (self._il).  Each
+        carrier group's part runs on its own device, over its own rings;
+        both fetches take every group at once."""
         n = len(fix9)
-        s9, e9s, kss = _phase_tch9s(
-            self.streams,
-            self._meta_dev(self._build_sub_meta(fix9, "tch9", F)),
-            self.kc, self.sps)
-        r9 = self._fetch_wait(self._fetch_start(s9))
+        parts = []
+        for j, d, pos, local in self._by_group(fix9, slot):
+            s9, e9s, kss = _phase_tch9s(
+                self.streams, self._meta_dev(self._build_sub_meta(
+                    [fix9[i] for i in pos], "tch9", F), d), self.kc, self.sps)
+            parts.append((j, d, pos, local, s9, e9s, kss))
+        pos_lists = [p[2] for p in parts]
+        r9 = self._in_order(self._fetch_wait(self._fetch_start(
+            [p[4] for p in parts])), pos_lists)
         fns = np.asarray([[c.cd.fn + f for f in range(F)] for c in fix9],
                          np.int64)
         started = fns >= np.asarray(
@@ -1311,17 +1516,20 @@ class WidebandReceiver:
                            int(fns[i, f]), fix9[i].cd.tch9.tn,
                            r9["l2f9"][i, f])
         fix = np.zeros((n, 3), np.int64)
-        fix[:, 0] = [slot[id(c)] for c in fix9]
         fix[:, 1] = resets           # 1 = newly (re)assigned: zero the ring
         fix[:, 2] = (is_t9.astype(np.int64) << np.arange(F)).sum(1)
-        self._il, l2a = _chain_fix(il_prev, il2,
-                                   torch.as_tensor(fix, device=self.device),
-                                   e9s, kss)
-        l2a = l2a.cpu().numpy()
+        l2parts = []
+        for j, d, pos, local, _s9, e9s, kss in parts:
+            fix[pos, 0] = local      # the ring row within the group
+            self._il[j], l2a = _chain_fix(il_prev[j], self._il[j],
+                                          upload(fix[pos], d), e9s, kss)
+            l2parts.append(dict(l2a=l2a.transpose(0, 1)))
+        l2a = self._in_order(self._fetch_wait(self._fetch_start(l2parts)),
+                             pos_lists)["l2a"]
         for i, car in enumerate(fix9):
             tn = car.cd.tch9.tn
             for f in np.flatnonzero(is_t9[i]):
-                l2 = l2a[f, i]
+                l2 = l2a[i, f]
                 self._emit(car, gsmtap.GMR1_TCH9, int(fns[i, f]), tn, l2)
                 car.csd.append(l2.tobytes())
 
@@ -1376,10 +1584,12 @@ class WidebandReceiver:
         on the resident state after run(): the receiver's throughput with
         the host reads, uploads and walks out of the picture.  One warm
         call, then `iters` calls between device synchronizations (on the
-        CPU the same calls, timed)."""
+        CPU the same calls, timed).  A split mesh runs the phase once a
+        carrier group, as run() does."""
         if self._last_put is None or self._last_meta is None:
             raise RuntimeError("run() first")
-        meta = self._meta_dev(self._last_meta)
+        metas = [self._meta_dev(self._last_meta, d, lo, hi)
+                 for d, lo, hi in self._groups()]
         devs = {str(d) for d in (self.mesh.devices if self.mesh is not None
                                  else (self.device,))}
 
@@ -1390,7 +1600,8 @@ class WidebandReceiver:
 
         def once():
             streams, _rows, _state = self._step(self._last_put, *self._state)
-            return _phase_block(streams, meta, self._il, self.kc, self.sps)
+            return [_phase_block(streams, m, il, self.kc, self.sps)
+                    for m, il in zip(metas, self._il)]
         once()
         sync()
         t0 = time.perf_counter()
@@ -1412,41 +1623,51 @@ class WidebandReceiver:
         # every carrier hits its done bound; wide channels run until EOF
         drain_max = self.T_tail // self.S_b + 3
         b = drained = 0
-        self.block_walls: list[float] = []
+        self.block_walls: list[float] = []   # per-iteration wall clock
+        self.block_profs: list[dict] = []    # per-iteration section split
         pending = None   # prefetched (streams, buf0, was_eof) of block b
-        while True:
-            t_iter = time.perf_counter()
-            narrow_done = all(c.done for c in self.carriers)
-            if narrow_done and (not self._wide or self._eof):
-                break
-            if self._eof and drained >= drain_max:
-                break
-            if pending is None:
-                was_eof = self._eof
-                self._ingest_block(b)
-                pending = (self.streams, self._buf0, was_eof)
-            self.streams, self._buf0, was_eof = pending
-            pending = None
-            if was_eof:
-                drained += 1
+        try:
+            while True:
+                t_iter = time.perf_counter()
+                prof0 = dict(self.prof)
+                narrow_done = all(c.done for c in self.carriers)
+                if narrow_done and (not self._wide or self._eof):
+                    break
+                if self._eof and drained >= drain_max:
+                    break
+                if pending is None:
+                    was_eof = self._eof
+                    self._ingest_block(b)
+                    pending = (self.streams, self._buf0, was_eof)
+                self.streams, self._buf0, was_eof = pending
+                pending = None
+                if was_eof:
+                    drained += 1
 
-            def prefetch(bb=b):
-                nonlocal pending
-                save = (self.streams, self._buf0)
-                was = self._eof
-                self._ingest_block(bb + 1)
-                pending = (self.streams, self._buf0, was)
-                self.streams, self._buf0 = save
+                def prefetch(bb=b):
+                    # block b+1's ingest: it takes the reader's job, so
+                    # EOF shows in `was` only once that job is taken
+                    nonlocal pending
+                    save = (self.streams, self._buf0)
+                    was = self._eof
+                    self._ingest_block(bb + 1)
+                    pending = (self.streams, self._buf0, was)
+                    self.streams, self._buf0 = save
 
-            active = [c for c in self.carriers
-                      if not c.done and self._ready(c)]
-            if active:
-                self._process_block(active, prefetch)
-            else:
-                prefetch()
-            if self._wide:
-                self._step_wide()
-            b += 1
-            self.block_walls.append(time.perf_counter() - t_iter)
+                active = [c for c in self.carriers
+                          if not c.done and self._ready(c)]
+                if active:
+                    self._process_block(active, prefetch)
+                else:
+                    prefetch()
+                if self._wide:
+                    self._step_wide()
+                b += 1
+                self.block_walls.append(time.perf_counter() - t_iter)
+                self.block_profs.append(
+                    {k: v - prof0.get(k, 0.0) for k, v in self.prof.items()
+                     if v - prof0.get(k, 0.0) > 0.0})
+        finally:
+            self._q_stop()
         self._process_wide()
         return len(self.frames)

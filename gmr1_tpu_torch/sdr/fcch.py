@@ -25,7 +25,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..ops import cplx, dsp
+from ..ops import consts, cplx, dsp
 from .defs import SYM_RATE
 
 
@@ -68,7 +68,8 @@ def rough(burst: FcchBurst, x, sps: int, freq_shift=0.0):
     x: planar (..., N, 2) with N > (320 ms + burst) * sps.  Returns int32
     TOA in input samples (...,)."""
     y = dsp.sig_normalize(cplx.tensor(x), sps, freq_shift)
-    corr = dsp.correlate_conv(_chirp_np(burst, 1, "dual"), y)
+    corr = dsp.correlate_conv(
+        consts.table(_chirp_np, burst, 1, "dual", device=y.device), y)
     toa, _ = dsp.peak_energy_find(corr, 5, dsp.PEAK_WEIGH_WIN)
     return torch.round(toa * sps).to(torch.int32)
 
@@ -77,7 +78,8 @@ def scan_pwr(burst: FcchBurst, seg):
     """Dual-chirp correlation power of a symbol-rate segment (..., L, 2)
     -> (..., L - len_syms + 1), unnormalized (every consumer is invariant
     to a per-carrier positive scale)."""
-    return cplx.abs2(dsp.correlate_conv(_chirp_np(burst, 1, "dual"), seg))
+    return cplx.abs2(dsp.correlate_conv(
+        consts.table(_chirp_np, burst, 1, "dual", device=seg.device), seg))
 
 
 def rough_from_pwr(burst: FcchBurst, pwr, sps: int):
@@ -98,8 +100,8 @@ def fine(burst: FcchBurst, x, sps: int, freq_shift=0.0):
         raise ValueError(f"fine() needs {n * sps} samples")
     mid = n >> 1
     dev = y.device
-    up = torch.as_tensor(_chirp_np(burst, 1, "up"), device=dev)
-    down = torch.as_tensor(_chirp_np(burst, 1, "down"), device=dev)
+    up = consts.table(_chirp_np, burst, 1, "up", device=dev)
+    down = consts.table(_chirp_np, burst, 1, "down", device=dev)
     # pre-shift so frequency 0 lands on bin `mid` (fcch.c:574-580)
     shift = cplx.expi(2.0 * np.pi * mid / n
                       * torch.arange(n, dtype=torch.float32, device=dev))
@@ -124,7 +126,7 @@ def snr(burst: FcchBurst, x, sps: int, freq_shift=0.0):
     y = dsp.sig_normalize(cplx.tensor(x), sps, freq_shift)
     if y.shape[-2] != burst.len_syms:
         raise ValueError(f"snr() needs {burst.len_syms * sps} samples")
-    ref = torch.as_tensor(_chirp_np(burst, 1, "dual")[:, 0], device=y.device)
+    ref = consts.table(_chirp_np, burst, 1, "dual", device=y.device)[:, 0]
     e = cplx.abs2(cplx.dft(y * ref[:, None]))
     top = torch.topk(e, 6, dim=-1).values
     return (top[..., 0] + top[..., 1]) / (top[..., 4] + top[..., 5])
@@ -141,7 +143,8 @@ def _rough_multi_device(burst: FcchBurst, x, sps: int, freq_shift):
     """Device half of rough_multi: correlation power, periodicity mix,
     threshold (fcch.c:366-454).  x: planar (..., N, 2)."""
     y = dsp.sig_normalize(cplx.tensor(x), sps, freq_shift)
-    corr = dsp.correlate_conv(_chirp_np(burst, 1, "dual"), y)
+    corr = dsp.correlate_conv(
+        consts.table(_chirp_np, burst, 1, "dual", device=y.device), y)
     return _rough_multi_pwr(burst, cplx.abs2(corr))
 
 

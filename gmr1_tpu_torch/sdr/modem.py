@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import cplx, dsp
+from ..ops import consts, cplx, dsp
 from .bursts import Burst
 
 
@@ -34,6 +34,10 @@ class DemodResult(NamedTuple):
 
 def _ref_planar(burst: Burst, sid: int, ci: int) -> np.ndarray:
     return cplx.planar_np(burst.sync_ref(sid)[ci])
+
+
+def _data_pos(burst: Burst) -> np.ndarray:
+    return burst.data_positions.astype(np.int64)
 
 
 def _select(stacked, idx):
@@ -51,8 +55,9 @@ def _sync_peaks(burst: Burst, y, sps: int, w: int):
         for ci, chunk in enumerate(burst.sync[sid]):
             b = chunk.pos * sps
             seg = y[..., b:b + chunk.length * sps + w - 1, :]
-            a = cplx.absv(dsp.correlate(_ref_planar(burst, sid, ci), seg,
-                                        sps))
+            a = cplx.absv(dsp.correlate(
+                consts.table(_ref_planar, burst, sid, ci, device=y.device),
+                seg, sps))
             acc = a if acc is None else acc + a
             tl += chunk.length
         # |correlation| as a planar vector with zero imag: the peak
@@ -112,7 +117,7 @@ def soft_symbols(burst: Burst, x, sps: int, win: int, freq_shift=0.0):
         corrs, centers = [], []
         for ci, chunk in enumerate(chunks):
             seg = z[..., chunk.pos:chunk.pos + chunk.length, :]
-            ref = torch.as_tensor(_ref_planar(burst, sid, ci), device=dev)
+            ref = consts.table(_ref_planar, burst, sid, ci, device=dev)
             corrs.append(cplx.conj_dot(ref, seg))
             centers.append(chunk.pos + chunk.length / 2.0)
         f = 0.0
@@ -130,7 +135,7 @@ def soft_symbols(burst: Burst, x, sps: int, win: int, freq_shift=0.0):
         acc = z.new_zeros((*z.shape[:-2], 2))
         for ci, chunk in enumerate(burst.sync[sid]):
             seg = z[..., chunk.pos:chunk.pos + chunk.length, :]
-            ref = torch.as_tensor(_ref_planar(burst, sid, ci), device=dev)
+            ref = consts.table(_ref_planar, burst, sid, ci, device=dev)
             acc = acc + cplx.conj_dot(ref, seg)
         phasors.append(acc)
     ph = torch.stack(phasors, dim=-2)
@@ -141,8 +146,7 @@ def soft_symbols(burst: Burst, x, sps: int, win: int, freq_shift=0.0):
 
     # --- phase -> soft symbols ----------------------------------------
     ssyms = cplx.angle(z) * ((1 << burst.mod.nbits) / (2.0 * np.pi))
-    sv = ssyms[..., torch.as_tensor(burst.data_positions, device=dev)
-               .long()]
+    sv = ssyms[..., consts.table(_data_pos, burst, device=dev)]
     return sv, sync_id, toa, freq_err, pwr
 
 

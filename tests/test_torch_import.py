@@ -40,7 +40,7 @@ for n in ("gmr1_tpu_torch.rx", "gmr1_tpu_torch.rx.__main__",
           "gmr1_tpu_torch.codec", "gmr1_tpu_torch.codec.__main__",
           "gmr1_tpu_torch.l1.xch_dc12", "gmr1_tpu_torch.l1.rach",
           "gmr1_tpu_torch.parallel", "gmr1_tpu_torch.parallel.ingest",
-          "gmr1_tpu_torch.parallel.transponder",
+          "gmr1_tpu_torch.parallel.transponder", "gmr1_tpu_torch.ops.consts",
           "gmr1_tpu_torch.channelizer.ddc",
           "gmr1_tpu_torch.channelizer.__main__",
           "gmr1_tpu_torch.tools.gmr1_gen_mat",

@@ -18,12 +18,14 @@ from gmr1_tpu.ops import dsp as j_dsp
 from gmr1_tpu.ops import interleave as j_il
 from gmr1_tpu.ops import scramble as j_scr
 from gmr1_tpu_torch.ops import bits as t_bits
+from gmr1_tpu_torch.ops import consts
 from gmr1_tpu_torch.ops import conv as t_conv
 from gmr1_tpu_torch.ops import cplx as t_cplx
 from gmr1_tpu_torch.ops import crc as t_crc
 from gmr1_tpu_torch.ops import dsp as t_dsp
 from gmr1_tpu_torch.ops import interleave as t_il
 from gmr1_tpu_torch.ops import scramble as t_scr
+from gmr1_tpu_torch.ops import viterbi as t_vit
 
 torch.set_num_threads(2)
 
@@ -104,6 +106,33 @@ def test_correlate(rng, step):
     ref, win = planar(rng, 7), planar(rng, 2, 3, 60)
     close(t_dsp.correlate(ref, torch.from_numpy(win), step),
           j_dsp.correlate(ref, win, step), atol=1e-5)
+
+
+_MADE: list = []
+
+
+def _ramp(n: int) -> np.ndarray:
+    _MADE.append(n)
+    return np.arange(n, dtype=np.int64)
+
+
+def test_consts_table_made_once():
+    """A constant table is made and uploaded once per (fn, args, device)
+    and then handed out again; the tensor-ref and tensor-index paths of
+    its users equal their host-array paths."""
+    a = consts.table(_ramp, 5, device="cpu")
+    assert consts.table(_ramp, 5, device=torch.device("cpu")) is a
+    assert _MADE == [5] and torch.equal(a, torch.arange(5))
+    assert consts.table(_ramp, 6, device="cpu").shape == (6,)
+    assert _MADE == [5, 6]
+    rng = np.random.default_rng(5)
+    ref, win = planar(rng, 7), torch.from_numpy(planar(rng, 2, 3, 60))
+    assert torch.equal(t_dsp.correlate(torch.from_numpy(ref), win, 4),
+                       t_dsp.correlate(ref, win, 4))
+    soft = torch.from_numpy(rng.normal(size=(3, 4)).astype(np.float32))
+    keep = np.asarray([0, 2, 5, 6])
+    assert torch.equal(t_vit.depuncture(soft, torch.from_numpy(keep), 8),
+                       t_vit.depuncture(soft, keep, 8))
 
 
 def test_correlate_conv(rng):

@@ -197,6 +197,21 @@ def test_sharded_transponder(rng, jmesh, tmesh):
         ShardedTransponder(chz, tmesh, n_local + 16)
 
 
+@pytest.mark.parametrize("kind", ["sharded", "streaming"])
+def test_transponders_run_the_f32_dft(tmesh, kind):
+    # they decode every column, those without a carrier too, so they keep
+    # the f32 channel DFT whatever the channelizer's analyzer says, and
+    # leave that analyzer as it was (parallel/transponder.py _f32_analyzer)
+    chz = Channelizer(FS, CENTER, sps=SPS)
+    st = (ShardedTransponder(chz, tmesh, 32 * 128) if kind == "sharded"
+          else StreamingTransponder(chz, tmesh))
+    ana = chz.analyzer
+    assert st.analyzer.dft_bf16 is False and ana.dft_bf16 is True
+    np.testing.assert_array_equal(st.analyzer.h_poly, ana.h_poly)
+    assert (st.analyzer.m, st.analyzer.p, st.analyzer.chunk_frames) == \
+        (ana.m, ana.p, ana.chunk_frames)
+
+
 # ---------------------------------------------------------------------------
 # StreamingTransponder: tests/test_parallel.py:162's fixture
 # ---------------------------------------------------------------------------

@@ -7,6 +7,12 @@ It must agree with the JAX shifted-accumulate form `_analyze_block` and
 with the Pallas slab kernel in interpret mode (f32 DFT) to rtol 2e-4 /
 atol 1e-4, the tolerance of the JAX package's own Pallas parity test
 (summation order differs).
+
+The bf16 channel DFT (`dft_bf16`, the card's default) has its plain
+version `channel_dft(..., bf16=True)`: it must agree with JAX's
+`dft_bf16=True` analysis in interpret mode within 1e-5 of the bank's
+peak (products of bf16 values are exact in float32, so only the order of
+the sums differs).
 """
 
 import numpy as np
@@ -247,3 +253,64 @@ def test_streamed_ingest_matches_jax(rng):
                                    **TOL)
         for a, b in zip(t_state, j_state):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+@pytest.mark.parametrize("m,p,r_cnt", GEOMS)
+def test_bf16_channel_dft_matches_pallas_interpret(rng, m, p, r_cnt):
+    x, h_poly, hop = geom_case(rng, m, p, r_cnt)
+    wa = jnp.asarray(pallas_pfb.slab_weights(h_poly, m, p, hop))
+    want = np.asarray(_analyze_block_fused(jnp.asarray(x), wa, m, p, hop,
+                                           interpret=True, dft_bf16=True))
+    ana = pfb.PFBAnalyzer.from_numpy(h_poly)
+    wa_t, dft, _dft16, qpar = ana._tables(torch.device("cpu"))
+    a2 = pfb.branch_filter(torch.from_numpy(x), wa_t, r_cnt, hop)
+    c2 = pfb.channel_dft(a2, dft, True)
+    rpar = (torch.arange(r_cnt) & 1).to(torch.float32)
+    c2 = c2 * (1.0 - 2.0 * rpar[:, None] * qpar[None, :])
+    got = torch.stack([c2[:, :m], c2[:, m:]], dim=-1).numpy()
+    peak = np.abs(want).max()
+    assert np.abs(got - want).max() <= 1e-5 * peak
+    # the bf16 product, not the f32 one: the f32 bank is far further off
+    f32 = ana.block(torch.from_numpy(x)).numpy()
+    assert np.abs(f32 - want).max() > 1e-4 * peak
+
+
+@pytest.mark.parametrize("m,p,r_cnt", GEOMS)
+def test_block_on_the_cpu_is_f32_whatever_dft_bf16(rng, m, p, r_cnt):
+    """JAX's non-TPU path: the float32 product, bf16 asked for or not."""
+    x, h_poly, _hop = geom_case(rng, m, p, r_cnt)
+    xt = torch.from_numpy(x)
+    on = pfb.PFBAnalyzer.from_numpy(h_poly)
+    off = pfb.PFBAnalyzer.from_numpy(h_poly, dft_bf16=False)
+    assert on.dft_bf16 and not off.dft_bf16
+    assert torch.equal(on.block(xt), off.block(xt))
+    wa, dft, _dft16, _qpar = off._tables(torch.device("cpu"))
+    a2 = pfb.branch_filter(xt, wa, r_cnt, m // 2)
+    assert torch.equal(pfb.channel_dft(a2, dft, False), a2 @ dft)
+
+
+@pytest.mark.parametrize("m,p,r_cnt", GEOMS)
+def test_block_packed_is_block_restacked(rng, m, p, r_cnt):
+    x, h_poly, _hop = geom_case(rng, m, p, r_cnt)
+    ana = pfb.PFBAnalyzer.from_numpy(h_poly)
+    xt = torch.from_numpy(x)
+    c2 = ana.block_packed(xt)
+    assert c2.shape == (r_cnt, 2 * m)
+    assert torch.equal(torch.stack([c2[:, :m], c2[:, m:]], dim=-1),
+                       ana.block(xt))
+
+
+def test_analyzer_carries_dft_bf16(rng):
+    m = 16
+    taps = rng.normal(size=3 * m).astype(np.float32)
+    h_poly = np.asarray(JPFBAnalyzer(m, taps).h_poly)
+    for flag in (True, False):
+        assert pfb.PFBAnalyzer.from_numpy(h_poly, 64,
+                                          dft_bf16=flag).dft_bf16 is flag
+        assert pfb.PFBAnalyzer(m, taps, dft_bf16=flag).dft_bf16 is flag
+    assert pfb.PFBAnalyzer.from_numpy(h_poly).dft_bf16
+    assert pfb.Channelizer(FS, CENTER).analyzer.dft_bf16
+    _wa, dft, dft16, _qpar = pfb.PFBAnalyzer(m, taps)._tables(
+        torch.device("cpu"))
+    assert dft16.dtype == torch.bfloat16 and torch.equal(
+        dft16, dft.to(torch.bfloat16))

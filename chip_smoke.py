@@ -24,7 +24,12 @@ result line):
                   T=96, FACCH9 K5_12 T=320, TCH9 K5_12 T=484 at B=1,
                   speech TCH3_K7 T=48 at B=2); all-zero (fully tied)
                   tail-biting K5 and K7 bursts; batches of 1, 3 and 33;
-                  T of 37, 45 and 70; bits and metric exact.  Each shape
+                  T of 37, 45 and 70; the 256-state form at the DC12
+                  shape (K9_13 tail-biting, B=1064, T=208) and at B=1,
+                  all-zero at B=2048, B=3 and 33, T=45, K9_13 flush,
+                  a table that is not antipodal, and a synthetic K=8
+                  tail-biting code (S=128) at B=33; bits and metric
+                  exact.  Each shape
                   is timed eager and by CUDA-graph replay (device time)
                   beside its bound and the serial-chain estimate.
   4. kernel P     PFB branch-filter kernel vs its plain version at the
@@ -1215,6 +1220,24 @@ def _trellis_line(tag: str, code, b: int, t_steps: int, ms: float,
     return bound, by
 
 
+def _k9_codes() -> dict:
+    """The 256- and 128-state trellises [V] and [ab] run: DC12's
+    K9_13 tail-biting code, K9_13 flush, a synthetic K=8 tail-biting code
+    (S=128; no GMR-1 code has 128 states) and a K=9 table whose butterflies
+    are not antipodal (two generators miss an end tap)."""
+    from gmr1_tpu_torch.ops import conv as CV
+    return dict(
+        k9_tb=CV.ConvCode("k9_13_tb", 9, CV.K9_13.polys,
+                          term=CV.TERM_TAIL_BITING),
+        k9_flush=CV.K9_13,
+        k8_tb=CV.ConvCode("k8_13_tb", 8, (0b10101011, 0b11001101,
+                                          0b10110111),
+                          term=CV.TERM_TAIL_BITING),
+        k9_nx=CV.ConvCode("k9_nx_tb", 9, (0b100101110, 0b110011011,
+                                          0b010100111),
+                          term=CV.TERM_TAIL_BITING))
+
+
 def phase_viterbi(rng, dev, n_car: int):
     """Kernel V vs plain on the card, at B=2048, at the receiver's
     batches for n_car carriers, at B=1, on all-zero (tied) bursts, odd
@@ -1256,6 +1279,17 @@ def phase_viterbi(rng, dev, n_car: int):
              (CV.K5_14, 37, 33, "T % 32 != 0"),
              (k5_tb, 45, 3, "T % 32 != 0"),
              (CV.TCH3_K7, 70, 5, "T % 32 != 0")]
+    k9 = _k9_codes()
+    cases += [  # the 256- and 128-state form
+        (k9["k9_tb"], 208, n_car, "DC12"),
+        (k9["k9_tb"], 208, 1, "DC12, one burst"),
+        (k9["k9_tb"], 208, 2048, "all-zero sym"),
+        (k9["k9_tb"], 208, 3, "odd B"), (k9["k9_tb"], 208, 33, "odd B"),
+        (k9["k9_tb"], 45, 33, "T % 32 != 0"),
+        (k9["k9_flush"], 208, n_car, "flush"),
+        (k9["k9_nx"], 208, 33, "not antipodal"),
+        (k9["k8_tb"], 208, 33, "synthetic K=8"),
+        (k9["k8_tb"], 45, 3, "synthetic K=8, T % 32 != 0")]
     err, out = 0.0, None
     for code, t_steps, b, what in cases:
         sym, sign, flush = _trellis_case(code, t_steps, b, rng, dev,
@@ -1544,7 +1578,9 @@ def phase_ab(old_root: str, rng, dev, n_car: int) -> None:
             (CV.K5_14, 96, 1, "per-carrier FACCH3"),
             (CV.K5_12, 320, 1, "per-carrier FACCH9"),
             (CV.K5_12, 484, 1, "per-carrier TCH9"),
-            (CV.TCH3_K7, 48, 2, "per-carrier speech")):
+            (CV.TCH3_K7, 48, 2, "per-carrier speech"),
+            (_k9_codes()["k9_tb"], 208, n_car, "DC12"),
+            (_k9_codes()["k9_tb"], 208, 2048, "K9")):
         sym, sign, flush = _trellis_case(code, t_steps, b, rng, dev)
         pb, pm = VT.decode_trellis_plain(sym, sign, flush)
         bits = torch.empty((b, t_steps), dtype=torch.uint8, device=dev)

@@ -214,3 +214,146 @@ def test_cpu_decode_does_not_launch_kernel(rng):
     before = t_vit.decode_trellis.launches
     t_vit.decode(tc, torch.from_numpy(noisy_sbits(rng, jc, 2, 10)), 10)
     assert t_vit.decode_trellis.launches == before
+
+
+def _pad(s):
+    """kernels/viterbi.cu `pad_idx`: the metric exchange buffer's index."""
+    return s + (s >> 5) * 4
+
+
+def bfly_model(sym, sign, flush):
+    """numpy model of kernels/viterbi.cu's S = 128/256 decoder, lane for
+    lane: lane l of a burst's warp owns butterflies i0 .. i0+R-1,
+    i0 = R l, holds m[i] and m[i + S/2] and makes states 2i and 2i+1;
+    the new metrics go through the padded exchange buffer; the ballot of
+    register j is word j; with an antipodal table one dot product serves
+    a butterfly's four branches; the first maximum comes from a lane scan
+    and the xor-shuffle butterfly; the traceback reads the words through
+    its four-deep prefetch ring.  Returns (bits, metric)."""
+    b_cnt, t_steps, n = sym.shape
+    s_cnt = sign.shape[0] // 2
+    half, nw = s_cnt // 2, s_cnt // 32
+    r_cnt = half // 32
+    lane = np.arange(32)
+    i0 = r_cnt * lane
+    i = i0[:, None] + np.arange(r_cnt)                 # (L, R)
+    g00, g01 = sign[2 * i], sign[2 * i + 1]             # (L, R, n)
+    g10, g11 = sign[s_cnt + 2 * i], sign[s_cnt + 2 * i + 1]
+    anti = bool(np.all((g01 == -g00) & (g10 == -g00) & (g11 == g00)))
+    neg = np.float32(-1e30)
+    m0 = np.where(flush & (i != 0), neg, np.float32(0)) * np.ones(
+        (b_cnt, 1, 1), np.float32)
+    m1 = np.full((b_cnt, 32, r_cnt), neg if flush else 0, np.float32)
+    words = np.zeros((b_cnt, t_steps, nw), np.uint64)
+    buf = np.zeros((b_cnt, _pad(s_cnt)), np.float32)
+    j2 = np.arange(2 * r_cnt)
+    for t in range(t_steps):
+        v = sym[:, t][:, None, None, :]                 # (B, 1, 1, n)
+
+        def dot(g):
+            return (v * g[None]).sum(-1, dtype=np.float32)
+        b00 = dot(g00)
+        b10 = -b00 if anti else dot(g10)
+        b01 = -b00 if anti else dot(g01)
+        b11 = b00 if anti else dot(g11)
+        c0e, c1e = m0 + b00, m1 + b10
+        c0o, c1o = m0 + b01, m1 + b11
+        de, do = c1e > c0e, c1o > c0o
+        nm = np.stack([np.where(de, c1e, c0e), np.where(do, c1o, c0o)],
+                      -1).reshape(b_cnt, 32, 2 * r_cnt)
+        d = np.stack([de, do], -1).reshape(b_cnt, 32, 2 * r_cnt)
+        words[:, t] = (d.astype(np.uint64)               # __ballot_sync
+                       << lane.astype(np.uint64)[None, :, None]).sum(1)
+        buf[:, _pad(2 * i0[:, None] + j2)] = nm
+        m0, m1 = buf[:, _pad(i)], buf[:, _pad(i + half)]
+    rows = np.arange(b_cnt)
+    if flush:
+        best = m0[:, 0, 0]
+        st = np.zeros(b_cnt, np.int64)
+    else:
+        best = m0[:, :, 0]
+        st = i0[None, :] * np.ones((b_cnt, 1), np.int64)
+        for mm, base in [(m0[:, :, r], i0 + r) for r in range(1, r_cnt)] + [
+                (m1[:, :, r], i0 + half + r) for r in range(r_cnt)]:
+            take = mm > best
+            best, st = np.where(take, mm, best), np.where(take, base, st)
+        off = 16
+        while off:                                      # __shfl_xor_sync
+            ob, os_ = best[:, lane ^ off], st[:, lane ^ off]
+            take = (ob > best) | ((ob == best) & (os_ < st))
+            best, st = np.where(take, ob, best), np.where(take, os_, st)
+            off //= 2
+        best, st = best[:, 0], st[:, 0]
+
+    def word(t, s):
+        return words[rows, t, s & (nw - 1)] if t >= 0 else np.zeros(
+            b_cnt, np.uint64)
+    ring = [word(t_steps - 1 - k, st >> k) for k in range(4)]
+    bits = np.zeros((b_cnt, t_steps), np.uint8)
+    lnw = nw.bit_length() - 1
+    for t in range(t_steps - 1, -1, -1):
+        bits[:, t] = st & 1
+        took = (ring[0] >> (st >> lnw).astype(np.uint64)) & np.uint64(1)
+        st = (st >> 1) | (took.astype(np.int64) * half)
+        ring = ring[1:] + [word(t - 4, st >> 3)]
+    return bits, best
+
+
+K8_13 = ("k8_13", 8, (0b10101011, 0b11001101, 0b10110111),
+         j_conv.TERM_TAIL_BITING)       # synthetic, S = 128, antipodal
+K9_NX = ("k9_nx", 9, (0b100101110, 0b110011011, 0b010100111),
+         j_conv.TERM_TAIL_BITING)       # taps miss an end: not antipodal
+BFLY_CASES = [   # (class, B, T)
+    (CLASSES[3], 1, 50), (CLASSES[3], 3, 45), (CLASSES[3], 33, 40),
+    (CLASSES[3], 5, 37), (CLASSES[3], 2, 64),
+    (K8_13, 33, 45), (K8_13, 3, 40),
+    (K9_NX, 3, 45), (K9_NX, 2, 33),
+]
+
+
+@pytest.mark.parametrize("cls,b,t_steps", BFLY_CASES,
+                         ids=[f"{c[0]}-B{b}-T{t}" for c, b, t in BFLY_CASES])
+@pytest.mark.parametrize("zero", ["noisy", "tied", "tail"])
+def test_bfly_layout_matches_plain(rng, cls, b, t_steps, zero):
+    """The S = 128/256 kernel's butterfly layout, exchange buffer, ballot
+    words, first-max reduction and prefetched word traceback give
+    decode_trellis_plain's bits and metrics exactly, flush and
+    tail-biting, on noisy bursts, on all-zero ones (every metric tied)
+    and on bursts whose last two steps are zero (the final metrics tie
+    in groups of four, so the first maximum is rarely state 0)."""
+    jc, _ = codes(*cls)
+    for term in (j_conv.TERM_FLUSH, j_conv.TERM_TAIL_BITING):
+        jc_t = j_conv.ConvCode(jc.name, jc.k, jc.polys, term)
+        in_len = t_steps - (jc.k - 1 if term == j_conv.TERM_FLUSH else 0)
+        soft = noisy_sbits(rng, jc_t, b, in_len)
+        if zero == "tied":
+            soft[:] = 0
+        elif zero == "tail":
+            soft[:, -2 * jc.n:] = 0
+        _, _, sign = j_vit._acs_tables(jc_t)
+        sym = soft.reshape(b, t_steps, jc.n)
+        sign2 = sign.reshape(-1, jc.n).astype(np.float32)
+        flush = term == j_conv.TERM_FLUSH
+        want = t_vit.decode_trellis_plain(torch.from_numpy(sym),
+                                          torch.from_numpy(sign2), flush)
+        assert_same(bfly_model(sym, sign2, flush), want)
+
+
+@pytest.mark.parametrize("term", [j_conv.TERM_FLUSH,
+                                  j_conv.TERM_TAIL_BITING])
+@pytest.mark.parametrize("zero", [False, True], ids=["noisy", "tied"])
+def test_bfly_layout_matches_pallas_interpret(rng, term, zero):
+    """At S = 256 the butterfly model gives the TPU kernel's results (run
+    in interpret mode), bit for bit."""
+    jc = j_conv.ConvCode("k9_13", 9, j_conv.K9_13.polys, term)
+    flush = term == j_conv.TERM_FLUSH
+    t_steps, b = 34, 5
+    soft = noisy_sbits(rng, jc, b, t_steps - (jc.k - 1 if flush else 0))
+    if zero:
+        soft[:] = 0
+    _, _, sign = j_vit._acs_tables(jc)
+    sym = soft.reshape(b, t_steps, jc.n)
+    sign2 = sign.reshape(-1, jc.n).astype(np.float32)
+    want = j_trellis(sym, sign2, t_steps, jc.num_states, flush,
+                     interpret=True)
+    assert_same(bfly_model(sym, sign2, flush), want)

@@ -36,6 +36,7 @@ import torch
 from .. import checked_device, kernels
 from ..ops import cplx
 from ..ops.consts import upload
+from ..trace import span
 from . import filters
 from .arfcn import BASE_BANDWIDTH, BASE_SYMRATE, Channel, align_freq
 
@@ -231,8 +232,9 @@ class PFBAnalyzer:
         r_cnt = (xp.shape[0] - self.p * m) // hop
         wa, dft, dft16, qpar = self._tables(xp.device)
         bf16 = self.dft_bf16 and xp.is_cuda
-        c2 = channel_dft(branch_filter(xp, wa, r_cnt, hop),
-                         dft16 if bf16 else dft, bf16)
+        a2 = branch_filter(xp, wa, r_cnt, hop)
+        with span("dft"):
+            c2 = channel_dft(a2, dft16 if bf16 else dft, bf16)
         rpar = (torch.arange(r_cnt, device=xp.device) & 1).to(torch.float32)
         return c2 * (1.0 - 2.0 * rpar[:, None] * qpar[None, :])
 

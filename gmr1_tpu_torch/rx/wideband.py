@@ -101,6 +101,7 @@ from ..parallel.ingest import (ShardedRows, analyze_reshard,
 from ..sdr import bursts as BU
 from ..sdr import dkab, fcch, modem
 from ..sdr.defs import SYM_RATE
+from ..trace import section, span
 from . import gsmtap
 from .cfile import ArraySource, BoundedStream, SampleSource
 from .receiver import (ChanDesc, Receiver, bcch_tdma_align,
@@ -111,6 +112,8 @@ torch.backends.cuda.matmul.allow_tf32 = False   # the RRC window matmul is f32
 
 ROWS_PER_FRAME = 2500     # bank rows per TDMA frame: 936*62500/23400
 QUANT_ROWS = 1 << 16      # int16 quantization pass: a chunk stays in cache
+# the burst windows the phases decode, by kind (WidebandReceiver.counts)
+WINDOW_KINDS = ("bcch", "ccch", "tch3", "nt9")
 
 
 def _energy(w):
@@ -395,8 +398,14 @@ class WidebandReceiver:
         # (created at the first block, advanced by the block phase)
         self._il: list[InterleaverState] | None = None
         self._a5_seen: dict[tuple[int, int], np.ndarray] = {}
-        # wall-clock per pipeline section, accumulated across run()
+        # wall-clock per pipeline section (trace.span), accumulated
+        # across run()
         self.prof: dict[str, float] = {}
+        # burst windows a kind: "dec.<kind>" demodulated and decoded by
+        # some phase, "read.<kind>" whose result a walk read; accumulated
+        # across run()
+        self.counts: dict[str, int] = {
+            f"{w}.{k}": 0 for w in ("dec", "read") for k in WINDOW_KINDS}
         # the block reader's worker time, one entry a job taken,
         # accumulated across run() (off the main thread: not a section)
         self.reader_s: list[float] = []
@@ -422,10 +431,10 @@ class WidebandReceiver:
                                            self.n_block, self._pull,
                                            device=self.device)
 
-    def _tick(self, key: str, t0: float) -> float:
-        t1 = time.perf_counter()
-        self.prof[key] = self.prof.get(key, 0.0) + (t1 - t0)
-        return t1
+    def _count(self, what: str, **kinds) -> None:
+        """Add burst windows of each kind to counts["<what>.<kind>"]."""
+        for kind, n in kinds.items():
+            self.counts[f"{what}.{kind}"] += int(n)
 
     def _quant(self, x: np.ndarray, out: np.ndarray | None = None
                ) -> np.ndarray:
@@ -535,6 +544,7 @@ class WidebandReceiver:
             for bs in self._wide_streams]
         self._wide_fwd = [0] * len(self._wide)
 
+    @section("resample")
     def _resample(self, rows_full):
         """(M, H + R_b, 2) bank rows -> (M, S_b, 2) carrier streams."""
         f_cnt = self.block_frames
@@ -548,6 +558,7 @@ class WidebandReceiver:
             m, f_cnt, 2, -1)                              # (M, F, 2, n)
         return s.transpose(2, 3).reshape(m, self.S_b, 2)
 
+    @section("step")
     def _step(self, x, *state):
         """One ingest step: (the put block, carried state) -> (streams,
         the block's bank rows (M, R_b, 2), next state); in mesh mode both
@@ -730,9 +741,8 @@ class WidebandReceiver:
             x, nv = self._replay_dev.pop(0)
         elif self._q_job is not None:
             job, self._q_job = self._q_job, None
-            t = time.perf_counter()
-            x, nv, busy = job.result()
-            self._tick("ingest_wait", t)
+            with span("ingest_wait", self.prof):
+                x, nv, busy = job.result()
             self.reader_s.append(busy)
             self._n_pulled += nv
             x = torch.from_numpy(x) if self.device.type != "cuda" \
@@ -744,11 +754,11 @@ class WidebandReceiver:
         self._pin_eof(nv)
         return x
 
+    @section("ingest")
     def _ingest_block(self, b: int) -> None:
         """Run the ingest step for block b; sets self.streams (M, T_buf,
         2) and self._buf0 (absolute output sample of buffer index 0), and
         feeds every wide channel's synthesizer into its stream."""
-        t = time.perf_counter()
         self._last_put = self._next_put_block()
         self.streams, rows, self._state = self._step(self._last_put,
                                                      *self._state)
@@ -756,7 +766,6 @@ class WidebandReceiver:
             bs.feed(ws.feed_cols(rows.take(ws.cols))
                     if isinstance(rows, ShardedRows) else ws.feed(rows))
         self._buf0 = b * self.S_b - self.T_tail
-        self._tick("ingest", t)
 
     # --- helpers -----------------------------------------------------
 
@@ -856,6 +865,7 @@ class WidebandReceiver:
             stream, _rows, state = self._step(x, *state)
             yield b, stream
 
+    @section("acquire")
     def acquire(self) -> list[_Carrier]:
         """Batched FCCH scan over every grid channel (fcch_single_init of
         gmr1_rx.c:605 vectorized across the transponder), streamed over
@@ -871,7 +881,6 @@ class WidebandReceiver:
         m = self.chz.n_chans
         hop = self.chz.analyzer.hop
         n_abl = -(-acq_len // self.S_b)
-        t = time.perf_counter()
 
         blocks, valid_in = self._acq_pull_blocks(n_abl)
         avail_out = int(np.floor((valid_in // hop) * self.rrc.ratio))
@@ -968,7 +977,6 @@ class WidebandReceiver:
                                               snr=s))
                 self._log(f"[+] ARFCN {arfcn} FCCH @{cd.align} snr={s:.1f} "
                           f"freq={cd.freq_err * SYM_RATE / 2 / np.pi:.1f} Hz")
-        self._tick("acquire", t)
         return self.carriers
 
     def seed_carriers(self, acq) -> list[_Carrier]:
@@ -1094,56 +1102,179 @@ class WidebandReceiver:
                 self.kc, fn, nbits)[0]
         return ks
 
+    @section("block")
     def _process_block(self, active: list[_Carrier], prefetch) -> None:
-        t = time.perf_counter()
-        self._q_start()     # the next block's read overlaps this one's
+        prof = self.prof
         sps, F = self.sps, self.block_frames
         frame_len = self.frame_out
-        cars = self.carriers
-        slot = {id(c): i for i, c in enumerate(cars)}
-        active_ids = {id(c) for c in active}
+        with span("phase", prof):
+            self._q_start()     # the next block's read overlaps this one's
 
-        # ---- one phase on PRE-block state -------------------------------
-        # everything depends only on block-boundary channel state, so the
-        # whole block (control + TCH3 + NT9 + CSD chain over the rings)
-        # runs before any fetch; rare same-block activations / realigns
-        # re-run a small correction phase for just those carriers.  A
-        # split mesh runs it once a carrier group, on the group's device,
-        # over the group's own rings
-        mb = self._build_meta(active_ids, F)
-        self._last_meta = mb
-        groups = self._groups()
-        sizes = [hi - lo for _, lo, hi in groups]
-        if self._il is None or [il.n.shape[0] for il in self._il] != sizes:
-            self._il = [InterleaverState(
-                buf=torch.zeros((hi - lo, tch9.INTER_DEPTH,
-                                 tch9.INTER_WIDTH), device=d),
-                n=torch.zeros((hi - lo,), dtype=torch.int64, device=d))
-                for d, lo, hi in groups]
-        il_prev = self._il
-        smalls, bigs = [], []
-        for (d, lo, hi), il in zip(groups, il_prev):
-            small, big = _phase_block(self.streams,
-                                      self._meta_dev(mb, d, lo, hi), il,
-                                      self.kc, sps)
-            smalls.append(small)
-            bigs.append(big)
-        handle = self._fetch_start(smalls)
-        t = self._tick("phase", t)
+            # ---- one phase on PRE-block state ---------------------------
+            # everything depends only on block-boundary channel state, so
+            # the whole block (control + TCH3 + NT9 + CSD chain over the
+            # rings) runs before any fetch; rare same-block activations /
+            # realigns re-run a small correction phase for just those
+            # carriers.  A split mesh runs it once a carrier group, on the
+            # group's device, over the group's own rings
+            with span("meta", prof):
+                slot = {id(c): i for i, c in enumerate(self.carriers)}
+                mb = self._build_meta({id(c) for c in active}, F)
+                self._last_meta = mb
+                self._count("dec", bcch=mb["idx_b"].size,
+                            ccch=mb["idx_c"].size, tch3=mb["idx_t"].size,
+                            nt9=mb["idx_9"].size)
+                groups = self._groups()
+                sizes = [hi - lo for _, lo, hi in groups]
+                if self._il is None \
+                        or [il.n.shape[0] for il in self._il] != sizes:
+                    self._il = [InterleaverState(
+                        buf=torch.zeros((hi - lo, tch9.INTER_DEPTH,
+                                         tch9.INTER_WIDTH), device=d),
+                        n=torch.zeros((hi - lo,), dtype=torch.int64,
+                                      device=d))
+                        for d, lo, hi in groups]
+                metas = [self._meta_dev(mb, d, lo, hi)
+                         for d, lo, hi in groups]
+            il_prev = self._il
+            with span("dispatch", prof):
+                smalls, bigs = [], []
+                for m, il in zip(metas, il_prev):
+                    small, big = _phase_block(self.streams, m, il, self.kc,
+                                              sps)
+                    smalls.append(small)
+                    bigs.append(big)
+                handle = self._fetch_start(smalls)
         # the next block's ingest is queued behind this block's phase:
         # its host read and upload overlap the phase on the device
         prefetch()
-        t = time.perf_counter()
-        res = self._fetch_wait(handle)
-        t = self._tick("fetch", t)
+        with span("fetch", prof):
+            res = self._fetch_wait(handle)
 
         # ---- host FSM pass 1: BCCH/CCCH + TCH3 activation ----------------
+        with span("walk", prof):
+            tch3_new, tch3_from, pre3, pre9 = self._walk_control(
+                active, slot, mb, res)
+
+        # ---- TCH3 walk over the speculative block-phase results ---------
+        with span("walk_tch3", prof):
+            new_ids = {id(c) for c in tch3_new}
+            fev: list = []
+            # carriers (re)assigned or realigned in pass 1 have stale
+            # block-phase windows: walk the supplemental phase instead
+            cars3 = [c for c in active if pre3[id(c)][0]
+                     and id(c) not in new_ids
+                     and c.cd.align == pre3[id(c)][1]]
+            if cars3:
+                rows3 = np.fromiter((slot[id(c)] for c in cars3), np.int64,
+                                    len(cars3))
+                fev += self._walk_tch3_vec(
+                    cars3, rows3, res, {}, F,
+                    [(bigs[j]["f_ebits"], r)
+                     for j, r in (divmod(int(i), sizes[0]) for i in rows3)])
+            supp = tch3_new + [
+                c for c in active
+                if pre3[id(c)][0] and id(c) not in new_ids
+                and c.cd.align != pre3[id(c)][1] and c.cd.tch3.active]
+            if supp:
+                with span("supp", prof):
+                    parts, f_src = [], [None] * len(supp)
+                    for _j, d, pos, _local in self._by_group(supp, slot):
+                        m = self._build_sub_meta([supp[i] for i in pos],
+                                                 "tch3", F)
+                        self._count("dec", tch3=m["idx"].size)
+                        s3, feb = _phase_tch3s(
+                            self.streams, self._meta_dev(m, d), self.kc, sps)
+                        parts.append((pos, s3))
+                        for r, i in enumerate(pos):
+                            f_src[i] = (feb, r)
+                    res_s = self._in_order(
+                        self._fetch_wait(self._fetch_start(
+                            [p for _, p in parts])),
+                        [pos for pos, _ in parts])
+                fev += self._walk_tch3_vec(supp, np.arange(len(supp)), res_s,
+                                           tch3_from, F, f_src)
+            jobs = self._facch_collect(fev)
+
+        with span("facch", prof):
+            self._t9_assigned: set[int] = set()
+            if jobs:
+                self._walk_facch(jobs, *self._decode_facch(jobs))
+
+        # ---- TCH9 emission + corrections ---------------------------------
+        # the chain already ran in the block phase from pre-block state;
+        # only carriers whose state changed during the walks (activation
+        # with an in-block start, reassignment, SI1 realign) re-run their
+        # ring rows from the pre-block rings with corrected windows and
+        # validity.  `fix_bound` caps the block phase's emissions: the
+        # chain is causal, so for a mid-block reassignment the frames
+        # BEFORE the handover decoded right on the old slot and are
+        # still emitted (as the reference's sequential walk does,
+        # gmr1_rx.c:276-353)
+        with span("tch9", prof):
+            fix9: list[_Carrier] = []
+            resets: list[int] = []
+            fix_bound: dict[int, int] = {}
+            for c in active:
+                a0, al0, f0_, tn0 = pre9[id(c)]
+                st9 = c.cd.tch9
+                if not st9.active:
+                    continue
+                assigned = id(c) in self._t9_assigned
+                if not a0:
+                    if st9.from_fn <= c.cd.fn + F - 1:
+                        fix9.append(c)
+                        resets.append(1)     # fresh assignment: zero ring
+                        fix_bound[id(c)] = -1 << 62   # nothing from main
+                elif assigned and (c.cd.align, c.cd.fn) == (al0, f0_):
+                    # reassignment re-inits the ring (rx_tch9_init); the
+                    # block phase's results stay valid up to the handover
+                    fix9.append(c)
+                    resets.append(1)
+                    fix_bound[id(c)] = st9.from_fn
+                elif assigned or (c.cd.align, c.cd.fn, st9.tn) \
+                        != (al0, f0_, tn0):
+                    # realigned mid-block: the old windows are suspect for
+                    # the whole block, so re-run it all
+                    fix9.append(c)
+                    resets.append(1 if assigned else 0)
+                    fix_bound[id(c)] = -1 << 62
+            self._tch9_emit_main(active, slot, mb, res, fix_bound, pre9)
+            self._il = [big["il2"] for big in bigs]
+            if fix9:
+                self._tch9_fix(fix9, resets, slot, il_prev, F)
+
+        # ---- advance block -----------------------------------------------
+        # one frame of slot offset + the largest burst window fits in two
+        # extra frame lengths: stop when the NEXT block would need samples
+        # past the capture end (gmr1_rx.c:893-894)
+        with span("walk", prof):
+            for car in active:
+                cd = car.cd
+                d_align, d_freq = cd._pending
+                del cd._pending
+                cd.align += F * frame_len + d_align
+                cd.freq_err += d_freq
+                cd.fn += F
+                if self.n_stream is not None \
+                   and cd.align + (F + 2) * frame_len > self.n_stream:
+                    car.done = True
+
+    def _walk_control(self, active, slot: dict, mb: dict, res: dict):
+        """Host FSM pass 1 over the block phase's results: BCCH (SI1
+        realign, closed-loop tracking, deferred to the block's end in
+        cd._pending) and CCCH (IMM.ASS activates TCH3).  Returns
+        (carriers newly on TCH3, {carrier: first active frame}, the
+        pre-walk TCH3 and TCH9 state of every active carrier)."""
+        sps, F = self.sps, self.block_frames
         pre3 = {id(c): (c.cd.tch3.active, c.cd.align) for c in active}
         pre9 = {id(c): (c.cd.tch9.active, c.cd.align, c.cd.fn,
                         c.cd.tch9.tn) for c in active}
         tch3_new: list[_Carrier] = []
         tch3_from: dict[int, int] = {}       # carrier -> first active f
         is_b, is_c, jb, jc = mb["is_b"], mb["is_c"], mb["jb"], mb["jc"]
+        act = mb["act"]
+        self._count("read", bcch=is_b[act].sum(), ccch=is_c[act].sum())
         for car in active:
             i = slot[id(car)]
             cd = car.cd
@@ -1193,108 +1324,7 @@ class WidebandReceiver:
                         self._emit(car, gsmtap.GMR1_CCCH, fn,
                                    cd.sa_bcch_stn, l2)
             cd._pending = (d_align, d_freq)   # applied after the walks
-        t = self._tick("walk", t)
-
-        # ---- TCH3 walk over the speculative block-phase results ---------
-        new_ids = {id(c) for c in tch3_new}
-        fev: list = []
-        # carriers (re)assigned or realigned in pass 1 have stale
-        # block-phase windows: walk the supplemental phase instead
-        cars3 = [c for c in active if pre3[id(c)][0]
-                 and id(c) not in new_ids
-                 and c.cd.align == pre3[id(c)][1]]
-        if cars3:
-            rows3 = np.fromiter((slot[id(c)] for c in cars3), np.int64,
-                                len(cars3))
-            fev += self._walk_tch3_vec(
-                cars3, rows3, res, {}, F,
-                [(bigs[j]["f_ebits"], r)
-                 for j, r in (divmod(int(i), sizes[0]) for i in rows3)])
-        supp = tch3_new + [
-            c for c in active
-            if pre3[id(c)][0] and id(c) not in new_ids
-            and c.cd.align != pre3[id(c)][1] and c.cd.tch3.active]
-        if supp:
-            parts, f_src = [], [None] * len(supp)
-            for _j, d, pos, _local in self._by_group(supp, slot):
-                s3, feb = _phase_tch3s(
-                    self.streams, self._meta_dev(self._build_sub_meta(
-                        [supp[i] for i in pos], "tch3", F), d),
-                    self.kc, sps)
-                parts.append((pos, s3))
-                for r, i in enumerate(pos):
-                    f_src[i] = (feb, r)
-            res_s = self._in_order(
-                self._fetch_wait(self._fetch_start([p for _, p in parts])),
-                [pos for pos, _ in parts])
-            fev += self._walk_tch3_vec(supp, np.arange(len(supp)), res_s,
-                                       tch3_from, F, f_src)
-        jobs = self._facch_collect(fev)
-        t = self._tick("walk_tch3", t)
-
-        self._t9_assigned: set[int] = set()
-        if jobs:
-            self._walk_facch(jobs, *self._decode_facch(jobs))
-        t = self._tick("facch", t)
-
-        # ---- TCH9 emission + corrections ---------------------------------
-        # the chain already ran in the block phase from pre-block state;
-        # only carriers whose state changed during the walks (activation
-        # with an in-block start, reassignment, SI1 realign) re-run their
-        # ring rows from the pre-block rings with corrected windows and
-        # validity.  `fix_bound` caps the block phase's emissions: the
-        # chain is causal, so for a mid-block reassignment the frames
-        # BEFORE the handover decoded right on the old slot and are
-        # still emitted (as the reference's sequential walk does,
-        # gmr1_rx.c:276-353)
-        fix9: list[_Carrier] = []
-        resets: list[int] = []
-        fix_bound: dict[int, int] = {}
-        for c in active:
-            a0, al0, f0_, tn0 = pre9[id(c)]
-            st9 = c.cd.tch9
-            if not st9.active:
-                continue
-            assigned = id(c) in self._t9_assigned
-            if not a0:
-                if st9.from_fn <= c.cd.fn + F - 1:
-                    fix9.append(c)
-                    resets.append(1)     # fresh assignment: zero ring
-                    fix_bound[id(c)] = -1 << 62   # nothing from main
-            elif assigned and (c.cd.align, c.cd.fn) == (al0, f0_):
-                # reassignment re-inits the ring (rx_tch9_init); the
-                # block phase's results stay valid up to the handover
-                fix9.append(c)
-                resets.append(1)
-                fix_bound[id(c)] = st9.from_fn
-            elif assigned or (c.cd.align, c.cd.fn, st9.tn) \
-                    != (al0, f0_, tn0):
-                # realigned mid-block: the old windows are suspect for
-                # the whole block, so re-run it all
-                fix9.append(c)
-                resets.append(1 if assigned else 0)
-                fix_bound[id(c)] = -1 << 62
-        self._tch9_emit_main(active, slot, mb, res, fix_bound, pre9)
-        self._il = [big["il2"] for big in bigs]
-        if fix9:
-            self._tch9_fix(fix9, resets, slot, il_prev, F)
-        t = self._tick("tch9", t)
-
-        # ---- advance block -----------------------------------------------
-        # one frame of slot offset + the largest burst window fits in two
-        # extra frame lengths: stop when the NEXT block would need samples
-        # past the capture end (gmr1_rx.c:893-894)
-        for car in active:
-            cd = car.cd
-            d_align, d_freq = cd._pending
-            del cd._pending
-            cd.align += F * frame_len + d_align
-            cd.freq_err += d_freq
-            cd.fn += F
-            if self.n_stream is not None \
-               and cd.align + (F + 2) * frame_len > self.n_stream:
-                car.done = True
-        self._tick("walk", t)
+        return tch3_new, tch3_from, pre3, pre9
 
     # --- TCH3 host FSM (gmr1_rx.c:356-600 over batched results) ---------
 
@@ -1324,10 +1354,13 @@ class WidebandReceiver:
         sidv = res["f_sid"][rows]
         speech_ok = np.zeros((n, F), bool)
         fev = [[] for _ in range(n)]
+        n_read = 0
         for f in range(F):
             a = act & (f >= f0v)
-            if not a.any():
+            n_a = int(a.sum())
+            if not n_a:
                 continue
+            n_read += n_a
             be = et[:, f]
             weak = a & (be < (edv + ebv) / 4.0)
             dk = weak & dkf[:, f]
@@ -1361,6 +1394,7 @@ class WidebandReceiver:
             r = rows[i]
             tch3_set[i].speech.append(res["s_f0"][r, f].tobytes())
             tch3_set[i].speech.append(res["s_f1"][r, f].tobytes())
+        self._count("read", tch3=n_read)
         return [(tch3_set[i], *f_src[i], fev[i])
                 for i in range(n) if fev[i]]
 
@@ -1417,6 +1451,7 @@ class WidebandReceiver:
         """Both cipher variants of every flush in one batched decode:
         rows [0, n) clear, rows [n, 2n) under the job's keystream."""
         n = len(jobs)
+        self._count("dec", tch3=2 * 4 * n)    # a flush: 4 bursts, twice
         eb = np.stack([j["eb"] for j in jobs])
         ciph = np.zeros((2 * n, 384), np.uint8)
         ciph[n:] = np.stack([j["ciph"] for j in jobs])
@@ -1432,8 +1467,11 @@ class WidebandReceiver:
             car, st = j["car"], j["car"].cd.tch3
             if j["had_ciph"]:
                 l2k, badk = l2[n + k], bad[n + k]
+                self._count("read", tch3=4)
             else:
                 l2k, badk = l2[k], bad[k]
+                # a failed clear decode reads the ciphered one too
+                self._count("read", tch3=8 if badk else 4)
                 if badk and not bad[n + k]:    # cipher retry hits
                     l2k, badk = l2[n + k], bad[n + k]
                     st.ciph = 1
@@ -1471,6 +1509,7 @@ class WidebandReceiver:
             bound = fix_bound.get(id(car))
             ok = started[i] if bound is None \
                 else started[i] & (fns[i] < bound)
+            self._count("read", nt9=ok.sum())
             # pre-block slot: a mid-block reassignment changes
             # cd.tch9.tn, but these frames decoded on the OLD slot
             tn = pre9[id(car)][3]
@@ -1496,18 +1535,21 @@ class WidebandReceiver:
         both fetches take every group at once."""
         n = len(fix9)
         parts = []
-        for j, d, pos, local in self._by_group(fix9, slot):
-            s9, e9s, kss = _phase_tch9s(
-                self.streams, self._meta_dev(self._build_sub_meta(
-                    [fix9[i] for i in pos], "tch9", F), d), self.kc, self.sps)
-            parts.append((j, d, pos, local, s9, e9s, kss))
-        pos_lists = [p[2] for p in parts]
-        r9 = self._in_order(self._fetch_wait(self._fetch_start(
-            [p[4] for p in parts])), pos_lists)
+        with span("supp", self.prof):
+            for j, d, pos, local in self._by_group(fix9, slot):
+                m = self._build_sub_meta([fix9[i] for i in pos], "tch9", F)
+                self._count("dec", nt9=m["idx"].size)
+                s9, e9s, kss = _phase_tch9s(
+                    self.streams, self._meta_dev(m, d), self.kc, self.sps)
+                parts.append((j, d, pos, local, s9, e9s, kss))
+            pos_lists = [p[2] for p in parts]
+            r9 = self._in_order(self._fetch_wait(self._fetch_start(
+                [p[4] for p in parts])), pos_lists)
         fns = np.asarray([[c.cd.fn + f for f in range(F)] for c in fix9],
                          np.int64)
         started = fns >= np.asarray(
             [c.cd.tch9.from_fn for c in fix9])[:, None]
+        self._count("read", nt9=started.sum())
         is_f9 = (r9["sid9"] == 0) & started
         is_t9 = (r9["sid9"] == 1) & started
         for i, f in np.argwhere(is_f9):
@@ -1519,13 +1561,14 @@ class WidebandReceiver:
         fix[:, 1] = resets           # 1 = newly (re)assigned: zero the ring
         fix[:, 2] = (is_t9.astype(np.int64) << np.arange(F)).sum(1)
         l2parts = []
-        for j, d, pos, local, _s9, e9s, kss in parts:
-            fix[pos, 0] = local      # the ring row within the group
-            self._il[j], l2a = _chain_fix(il_prev[j], self._il[j],
-                                          upload(fix[pos], d), e9s, kss)
-            l2parts.append(dict(l2a=l2a.transpose(0, 1)))
-        l2a = self._in_order(self._fetch_wait(self._fetch_start(l2parts)),
-                             pos_lists)["l2a"]
+        with span("supp", self.prof):
+            for j, d, pos, local, _s9, e9s, kss in parts:
+                fix[pos, 0] = local      # the ring row within the group
+                self._il[j], l2a = _chain_fix(il_prev[j], self._il[j],
+                                              upload(fix[pos], d), e9s, kss)
+                l2parts.append(dict(l2a=l2a.transpose(0, 1)))
+            l2a = self._in_order(self._fetch_wait(self._fetch_start(
+                l2parts)), pos_lists)["l2a"]
         for i, car in enumerate(fix9):
             tn = car.cd.tch9.tn
             for f in np.flatnonzero(is_t9[i]):
@@ -1545,6 +1588,7 @@ class WidebandReceiver:
                 self.sink.send(t, fn, tn, l2b, arfcn=ch.arfcn)
         self._wide_fwd[i] = len(rxw.frames)
 
+    @section("wide")
     def _step_wide(self, eof: bool = False) -> None:
         """Advance every wide channel's incremental Receiver over the
         samples its BoundedStream holds, then trim the stream to the
@@ -1552,13 +1596,11 @@ class WidebandReceiver:
         whole capture (the reference's split-then-decode pipeline,
         utils/gmr1_process_recording.py:89-110, as one streaming
         program)."""
-        t = time.perf_counter()
         for i, (bs, rxw) in enumerate(zip(self._wide_streams,
                                           self._wide_rx)):
             rxw.stream_run(eof=eof)
             bs.trim(rxw.stream_keep_from())
             self._fwd_wide(i)
-        self._tick("wide", t)
 
     def _process_wide(self) -> None:
         """EOF drain + per-channel result carriers for the wide path (the
@@ -1588,6 +1630,7 @@ class WidebandReceiver:
         carrier group, as run() does."""
         if self._last_put is None or self._last_meta is None:
             raise RuntimeError("run() first")
+        prof = dict(self.prof)      # the re-runs are no section of run()
         metas = [self._meta_dev(self._last_meta, d, lo, hi)
                  for d, lo, hi in self._groups()]
         devs = {str(d) for d in (self.mesh.devices if self.mesh is not None
@@ -1608,7 +1651,10 @@ class WidebandReceiver:
         for _ in range(iters):
             once()
         sync()
-        return (time.perf_counter() - t0) / iters
+        t = (time.perf_counter() - t0) / iters
+        self.prof.clear()
+        self.prof.update(prof)
+        return t
 
     def run(self) -> int:
         """Acquire + decode the whole capture.  Returns #L2 frames."""

@@ -11,9 +11,10 @@ gmr1_tpu/rx/wideband.py:724-749), on tests/test_wideband.py's e2e capture
   * a source whose read raises on the worker makes run() raise, and the
     worker is shut down;
   * block_profs holds one section split a block-loop iteration; the
-    main thread's sections fit in the iteration's wall, the wait for the
-    worker (`ingest_wait`) is one of them, and the worker's own time is
-    kept apart (`reader_s`, one entry a job).
+    main thread's outermost sections fit in the iteration's wall and
+    every section in the ones it runs inside (gmr1_tpu_torch.trace's
+    PARENT), the wait for the worker (`ingest_wait`) is one of them, and
+    the worker's own time is kept apart (`reader_s`, one entry a job).
 
 On the card the worker writes into pinned staging buffers and the upload
 runs on a copy stream; chip_smoke.py's [slice] and [mesh] phases run
@@ -27,6 +28,7 @@ import pytest
 import torch
 
 from gmr1_tpu.rx.wideband import WidebandReceiver as JRx
+from gmr1_tpu_torch import trace
 from gmr1_tpu_torch.rx.cfile import ArraySource
 from gmr1_tpu_torch.rx.wideband import WidebandReceiver as TRx
 
@@ -136,11 +138,25 @@ def test_block_profs_one_dict_per_iteration(runs):
     for prof, wall in zip(trx.block_profs, trx.block_walls):
         assert set(prof) <= set(trx.prof)
         assert all(v > 0.0 for v in prof.values())
-        # ingest_wait is a part of ingest
-        assert sum(v for k, v in prof.items() if k != "ingest_wait") <= wall
+        # sections nest: the outermost ones fit in the wall, and each
+        # other one in the sections it runs inside (ingest_wait in ingest)
+        assert sum(trace.top_level(prof).values()) <= wall
+        for k, v in prof.items():
+            held = [prof[p] for p in trace.PARENT.get(k, ()) if p in prof]
+            assert not held or v <= sum(held) + 1e-9, k
+    assert trace.PARENT["ingest_wait"] == ("ingest",)
     assert "ingest_wait" in trx.prof and "reader" not in trx.prof
     assert trx.reader_s and all(t > 0.0 for t in trx.reader_s)
     for k in trx.prof:
-        if k != "acquire":
+        # the acquisition's sections, and those that also run inside it
+        if k != "acquire" and "acquire" not in _holders(k):
             assert sum(p.get(k, 0.0) for p in trx.block_profs) \
                 == pytest.approx(trx.prof[k])
+
+
+def _holders(k: str) -> set:
+    """Every section that section k can run inside, at any depth."""
+    out = set(trace.PARENT.get(k, ()))
+    for p in list(out):
+        out |= _holders(p)
+    return out

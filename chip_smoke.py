@@ -152,7 +152,8 @@ result line):
 Kernel launches are counted per path (carrier, paths, slice, mesh,
 split, l1, tools): each
 count is set to 0 just before the path runs and read just after, and a
-path fails if a kernel it runs was never launched.  The last three lines
+path fails if a kernel it runs was never launched ([paths], whose
+carriers are control-only, if it launched kernel A5).  The last three lines
 are the card's name and power limit, a JSON object with each kernel's
 launches (all paths, and per path), error, times, bound (the larger of
 its bytes over 3.35 TB/s and its operations over 67 TFLOP/s f32) and
@@ -841,9 +842,11 @@ def phase_paths(tmp: str, card: str) -> dict:
     print(f"[paths] {n['frames']} frames, all bit-exact; {n['narrow']} "
           f"narrow carriers with >= 3 SI1s, {n['beam_b']} with both beams, "
           f"{n['wide']} wide carriers; no frame off the seeded ARFCNs")
+    # every carrier is control-only: the block phases run no traffic
+    # half, so kernel A5 never launches
     for name, v in launches.items():
-        _require(v > 0, f"the wideband paths never launched the {name} "
-                 "kernel")
+        _require((v == 0) if name == "a5" else (v > 0),
+                 (f"the wideband paths launched the {name} kernel", v))
     return launches
 
 
@@ -1626,8 +1629,8 @@ def phase_ab(old_root: str, rng, dev, n_car: int) -> None:
 @contextlib.contextmanager
 def _phase_calls():
     """Record every block phase (`_phase_block`) the wideband receiver
-    runs inside: a list of (carrier rows, device, kernel V launches,
-    kernel A5 launches), one entry a call."""
+    runs inside: a list of (carrier rows, device, rows of its traffic
+    half, kernel V launches, kernel A5 launches), one entry a call."""
     from gmr1_tpu_torch.rx import wideband
     orig, calls = wideband._phase_block, []
 
@@ -1635,7 +1638,9 @@ def _phase_calls():
         c0 = _counts()
         out = orig(streams, m, *args)
         c1 = _counts()
+        tr = m["tr"]
         calls.append((int(m["rows"].shape[0]), str(m["rows"].device),
+                      0 if tr is None else int(tr["rows"].shape[0]),
                       c1["viterbi"] - c0["viterbi"], c1["a5"] - c0["a5"]))
         return out
     wideband._phase_block = phase
@@ -1643,6 +1648,25 @@ def _phase_calls():
         yield calls
     finally:
         wideband._phase_block = orig
+
+
+def _check_phase_launches(calls, what: str, phase_v=None) -> int:
+    """The kernel launches of each block phase in `calls` (`_phase_calls`):
+    without a traffic slot, kernel V twice (BCCH, CCCH) and A5 never;
+    with one, V as every such phase (`phase_v` where given) and A5 once.
+    Returns the V launches of a phase with a traffic half (None if no
+    phase had one)."""
+    full = {v for _n, _d, t, v, _a in calls if t}
+    if phase_v is not None:
+        full.add(phase_v)
+    _require(len(full) <= 1, (what, "block phases with a traffic half "
+                              "launch kernel V differently", sorted(full)))
+    v_full = min(full, default=None)
+    for n, dev, t, v, a in calls:
+        want = (v_full, 1) if t else (2, 0)
+        _require((v, a) == want, (what, "block phase launches (V, A5)",
+                                  (n, dev, t, v, a), "want", want))
+    return v_full
 
 
 def _trace_census(fn, path: str) -> tuple[dict, float, float, float]:
@@ -1744,13 +1768,15 @@ def phase_slice(tmp: str, card: str) -> tuple[dict, dict]:
              and rx._copy_stream is not None
              and all(b.is_pinned() for b in rx._stage),
              "the block reader's worker, staging buffers or copy stream")
-    phase_v = {v for _rows, _d, v, _a in calls}
-    _require(len(phase_v) == 1 and all(a == 1 for *_x, a in calls),
-             ("block phase launches (V, A5) differ between blocks", calls))
+    phase_v = _check_phase_launches(calls, "[slice]")
+    t_sizes = [t for _n, _d, t, _v, _a in calls]
+    _require(phase_v is not None, ("[slice]: no block phase ran a traffic "
+                                   "half", t_sizes))
     print(f"[slice] acquire {t_acq:.2f} s, block loop {wall - t_acq:.2f} s, "
-          f"{len(rx.block_walls)} blocks, {len(calls)} block phases "
-          f"(kernel V {min(phase_v)} and A5 1 launch a phase); "
-          + _reader_line(rx))
+          f"{len(rx.block_walls)} blocks, {len(calls)} block phases; "
+          f"traffic slots a phase (of {calls[0][0]}): {t_sizes}; kernel V "
+          f"{phase_v} launches and A5 1 in a phase with traffic slots, V 2 "
+          "and A5 0 in one without; " + _reader_line(rx))
     print(_rx_line("slice", rx, wb.shape[0], wall, card)
           + " (bf16 channel DFT, the default)")
     crc = _crc_types()
@@ -1801,7 +1827,7 @@ def phase_slice(tmp: str, card: str) -> tuple[dict, dict]:
     return launches, dict(wb=wb, fs=FS, center=center, seeded=seeded,
                           truths=truths, rx=rx, launches=launches,
                           msps=wb.shape[0] / wall, phases=len(calls),
-                          phase_v=min(phase_v))
+                          phase_v=phase_v)
 
 
 # --------------------------------------------------------------------------
@@ -1915,15 +1941,16 @@ def phase_mesh(card: str, sl: dict, dev) -> dict:
                  (str(mesh), "kernel P launches", launches["pfb"], want_p))
         # the block phase split over the carriers: one phase a carrier
         # group a block, on the group's device, each launching V and A5
-        # as [slice]'s one phase does
+        # as [slice]'s phases do, by whether it has traffic slots
         n_car, d = len(rx.carriers), mesh.size
         groups = rx._groups()
         _require(n_car % d == 0 and len(groups) == d and len(rx._il) == d,
                  (str(mesh), "block phase not split", n_car, len(groups)))
-        want = [(n_car // d, str(dv), sl["phase_v"], 1)
-                for dv in mesh.devices] * sl["phases"]
-        _require(calls == want, (str(mesh), "block phases", calls[:8],
-                                 len(calls), len(want)))
+        want = [(n_car // d, str(dv)) for dv in mesh.devices] * sl["phases"]
+        _require([c[:2] for c in calls] == want,
+                 (str(mesh), "block phases", calls[:8], len(calls),
+                  len(want)))
+        _check_phase_launches(calls, str(mesh), sl["phase_v"])
         for name, v in launches.items():
             _require(v > 0, f"the mesh receiver never launched the {name} "
                      "kernel")
@@ -1940,8 +1967,10 @@ def phase_mesh(card: str, sl: dict, dev) -> dict:
                                               launches.items())
               + f" (P = {mesh.size} x [slice]'s {sl['launches']['pfb']}); "
               f"block phase split over {d} groups of {n_car // d} carriers: "
-              f"{len(calls)} phases = {d} x [slice]'s {sl['phases']}, each "
-              f"launching kernel V {sl['phase_v']} times and A5 once; "
+              f"{len(calls)} phases = {d} x [slice]'s {sl['phases']}, "
+              "traffic slots a phase "
+              f"{[c[2] for c in calls]}, each with some launching kernel "
+              f"V {sl['phase_v']} times and A5 once, each without V twice; "
               "sections " + ", ".join(f"{k} {v:.2f} s"
                                       for k, v in rx.prof.items()))
         print(f"[mesh] device_block_time on {mesh} (split phase): "

@@ -25,14 +25,18 @@ in, every carrier's BCCH, CCCH, TCH3 (speech, FACCH3, DKAB) and TCH9
                stream from the block's bank rows (WideStreamer) into a
                BoundedStream that its own per-carrier Receiver decodes
                incrementally (stream_run) during the block loop.
-  block phase  `_phase_block`, computed speculatively for every carrier
-               from the pre-block channel state: BCCH + CCCH demod and
-               decode; the TCH3 slot path (energy, DKAB, burst type,
-               FACCH3 demod, speech decode under the A5/1 keystream);
-               NT9 demod and FACCH9 decode; the chained TCH9 9k6 decode
-               over the device-resident deinterleaver rings (one row per
-               carrier slot).  Only the small decoded results come back;
-               soft bits stay on the device.
+  block phase  `_phase_block`, computed speculatively from the pre-block
+               channel state.  The control half runs for every carrier:
+               BCCH + CCCH demod and decode.  The traffic half runs only
+               for the carrier slots that hold a TCH3 or TCH9 channel at
+               the block boundary (none on a control-only grid): the TCH3
+               slot path (energy, DKAB, burst type, FACCH3 demod, speech
+               decode under the A5/1 keystream); NT9 demod and FACCH9
+               decode; the chained TCH9 9k6 decode over the
+               device-resident deinterleaver rings (one row per carrier
+               slot; the rows of other slots stay as they were).  Only the
+               small decoded results come back; soft bits stay on the
+               device.
   host walks   the per-carrier FSMs (gmr1_rx.c:356-850) select from the
                fetched results: SI1 frame-number / slot realign,
                closed-loop time and frequency corrections applied at the
@@ -255,21 +259,35 @@ def _chain_core(e9, ks, il, sid, flags):
 
 
 def _phase_block(streams, m: dict, il, key, sps: int):
-    """The whole block for every carrier slot (see the module doc).
-    `m` is the block meta on the device.  Returns (small, big): `small`
-    is fetched to the host, every tensor carrier-major (a split mesh's
-    groups concatenate on axis 0); `big` (FACCH soft bits, NT9 soft bits and
-    keystreams, the updated rings) stays on the device for the rare
-    correction phases."""
-    rows, fs, fn0, flags = m["rows"], -m["freq"][:, None], m["fn0"], \
-        m["flags"]
-    small = _ctrl_core(streams, rows, fs, m["idx_b"], m["idx_c"], sps)
-    s9, e9, ks = _tch9_core(streams, rows, fs, fn0, m["idx_9"], key, sps)
-    s3, f_ebits = _tch3_core(streams, rows, fs, fn0, m["p"], flags,
-                             m["idx_t"], key, sps, ks208=ks[..., :208])
+    """The whole block of a carrier group (see the module doc).  `m` is
+    the block meta on the device: the control half runs on every slot,
+    the traffic half on the rows of m["tr"] alone (`_meta_dev`; None when
+    no slot holds a traffic channel, and then nothing of it runs).
+    Returns (small, big): `small` is fetched to the host, every tensor
+    carrier-major, a row a slot for the control results and a row of
+    m["tr"] for the traffic ones (a split mesh's groups concatenate on
+    axis 0); `big` (FACCH soft bits, NT9 soft bits and keystreams of
+    m["tr"]'s rows, the post-block rings: `il` itself without a traffic
+    half) stays on the device for the rare correction phases."""
+    fs = -m["freq"][:, None]
+    small = _ctrl_core(streams, m["rows"], fs, m["idx_b"], m["idx_c"], sps)
+    t = m["tr"]
+    if t is None:
+        return small, dict(il2=il)
+    slots, il_t = t["slots"], il
+    if slots is not None:       # a sub-batch of the group's slots
+        fs = -t["freq"][:, None]
+        il_t = InterleaverState(buf=il.buf[slots], n=il.n[slots])
+    rows, fn0, flags = t["rows"], t["fn0"], t["flags"]
+    s9, e9, ks = _tch9_core(streams, rows, fs, fn0, t["idx_9"], key, sps)
+    s3, f_ebits = _tch3_core(streams, rows, fs, fn0, t["p"], flags,
+                             t["idx_t"], key, sps, ks208=ks[..., :208])
     small.update(s3)
     small.update(s9)
-    il2, l2a = _chain_core(e9, ks, il, s9["sid9"], flags)
+    il2, l2a = _chain_core(e9, ks, il_t, s9["sid9"], flags)
+    if slots is not None:       # the other rows stay the pre-block ones
+        il2 = InterleaverState(buf=il.buf.index_copy(0, slots, il2.buf),
+                               n=il.n.index_copy(0, slots, il2.n))
     small["l2a"] = l2a.transpose(0, 1)      # carrier-major, as all of small
     big = dict(f_ebits=f_ebits, e9=e9, ks=ks, il2=il2)
     return small, big
@@ -297,7 +315,8 @@ def _chain_fix(il_prev, il2, fix, e9, ks):
     int64 [slot | reset | valid bits]; e9/ks are the subset's soft bits
     and keystreams.  The port pads no batch, so the slots are unique and
     scatter with index_copy_, in place: il2 is the block phase's fresh
-    ring, held by nothing else."""
+    ring, held by nothing else, or il_prev itself where the group ran no
+    traffic half, whose rows are gathered before they are written."""
     slots, reset, vbits = fix[:, 0], fix[:, 1], fix[:, 2]
     f_cnt = e9.shape[1]
     valid = ((vbits[:, None] >> torch.arange(f_cnt, device=fix.device))
@@ -402,10 +421,13 @@ class WidebandReceiver:
         # across run()
         self.prof: dict[str, float] = {}
         # burst windows a kind: "dec.<kind>" demodulated and decoded by
-        # some phase, "read.<kind>" whose result a walk read; accumulated
-        # across run()
+        # some phase, "read.<kind>" whose result a walk read; carrier
+        # slots: "phase.slots" the block phases' control half ran on,
+        # "phase.traffic_slots" their traffic half; accumulated across
+        # run()
         self.counts: dict[str, int] = {
             f"{w}.{k}": 0 for w in ("dec", "read") for k in WINDOW_KINDS}
+        self.counts.update({"phase.slots": 0, "phase.traffic_slots": 0})
         # the block reader's worker time, one entry a job taken,
         # accumulated across run() (off the main thread: not a section)
         self.reader_s: list[float] = []
@@ -805,12 +827,14 @@ class WidebandReceiver:
     @staticmethod
     def _fetch_wait(handle) -> dict:
         """The fetched arrays, the groups' parts concatenated in order on
-        axis 0 (every fetched result is carrier-major)."""
+        axis 0 (every fetched result is carrier-major); a key that some
+        parts lack (a block phase's traffic results) joins the parts that
+        have it."""
         host, evs = handle
         for ev in evs:
             ev.synchronize()
-        return {k: np.concatenate([h[k].numpy() for h in host])
-                for k in host[0]}
+        return {k: np.concatenate([h[k].numpy() for h in host if k in h])
+                for k in dict.fromkeys(k for h in host for k in h)}
 
     @staticmethod
     def _in_order(res: dict, pos_lists) -> dict:
@@ -1009,7 +1033,11 @@ class WidebandReceiver:
         8-frame block; TCH3 windows at tch3.tn and NT9 windows at
         tch9.tn on every frame.  `flags`: bit 0 tch9-active (and
         active), bit 1 the TCH3 cipher flag, bits 16..16+F the frames
-        at or after tch9.from_fn (gmr1_rx.c:437-441)."""
+        at or after tch9.from_fn (gmr1_rx.c:437-441).  `t`: the slots
+        whose traffic half runs, the active ones with TCH3 or TCH9 up at
+        the block boundary (the walks read no other slot's traffic
+        results); `trow`: a slot's row in the traffic results (the rows
+        of `t` in order), -1 outside `t`."""
         cars = self.carriers
         sps, buf0, fo = self.sps, self._buf0, self.frame_out
         n = len(cars)
@@ -1026,7 +1054,11 @@ class WidebandReceiver:
         tn9 = vec(lambda c: c.cd.tch9.tn, np.int64)
         a9 = vec(lambda c: c.cd.tch9.active, bool)
         ff9 = vec(lambda c: c.cd.tch9.from_fn, np.int64)
+        a3 = vec(lambda c: c.cd.tch3.active, bool)
         act = vec(lambda c: id(c) in active_ids, bool)
+        t = np.flatnonzero(act & (a3 | a9))
+        trow = np.full(n, -1, np.int64)
+        trow[t] = np.arange(t.size)
         fns = fn0[:, None] + np.arange(F)
         r8 = ((fns - delay[:, None]) & 63) % 8
         is_b = r8 == 2
@@ -1057,7 +1089,8 @@ class WidebandReceiver:
             idx_t=idx(tn3, fa, w, BU.NT3_FACCH.len_syms * sps + w),
             idx_9=idx(tn9, fa, w, BU.NT9.len_syms * sps + w),
             fns=fns, is_b=is_b, is_c=is_c, jb=np.cumsum(is_b, 1) - 1,
-            jc=np.cumsum(is_c, 1) - 1, a9=a9, act=act, started=started)
+            jc=np.cumsum(is_c, 1) - 1, a9=a9, act=act, started=started,
+            t=t, trow=trow)
 
     def _build_sub_meta(self, cars, kind: str, F: int) -> dict:
         """Meta of a supplemental subset phase: `idx` is the one slot
@@ -1080,15 +1113,35 @@ class WidebandReceiver:
             idx=np.clip(base[:, None] + np.arange(F) * fo, 0,
                         self.T_buf - wlen - 1))
 
-    _DEV_META = ("rows", "freq", "fn0", "p", "flags", "idx_b", "idx_c",
-                 "idx_t", "idx_9", "idx")
+    # a block meta's device keys: the control half's, and those only the
+    # traffic half reads
+    _CTRL_META = ("rows", "freq", "idx_b", "idx_c")
+    _TRAFFIC_META = ("fn0", "p", "flags", "idx_t", "idx_9")
 
     def _meta_dev(self, m: dict, device, lo: int = 0,
                   hi: int | None = None) -> dict:
         """The device half of a meta dict, its carrier rows [lo, hi) (a
-        carrier group), on `device`."""
-        return {k: upload(v[lo:hi], device)
-                for k, v in m.items() if k in self._DEV_META}
+        carrier group), on `device`.  A block meta's traffic half goes to
+        "tr": the rows of the group's slots in m["t"], with "slots" their
+        ring rows in the group; the same tensors as the control half's
+        and "slots" None where that is every slot; None where it is
+        none."""
+        if "t" not in m:        # a correction phase's subset, all device
+            return {k: upload(v[lo:hi], device) for k, v in m.items()}
+        out = {k: upload(m[k][lo:hi], device) for k in self._CTRL_META}
+        n = out["rows"].shape[0]
+        t = m["t"][(m["t"] >= lo) & (m["t"] < lo + n)] - lo
+        if not t.size:
+            out["tr"] = None
+        elif t.size == n:
+            out["tr"] = dict(rows=out["rows"], freq=out["freq"], slots=None,
+                             **{k: upload(m[k][lo:hi], device)
+                                for k in self._TRAFFIC_META})
+        else:
+            out["tr"] = dict(slots=upload(t, device), **{
+                k: upload(m[k][lo:hi][t], device)
+                for k in ("rows", "freq") + self._TRAFFIC_META})
+        return out
 
     def _a5(self, fn: int, nbits: int) -> np.ndarray:
         """Host downlink keystream of one frame (the FACCH3 flushes).
@@ -1112,18 +1165,21 @@ class WidebandReceiver:
 
             # ---- one phase on PRE-block state ---------------------------
             # everything depends only on block-boundary channel state, so
-            # the whole block (control + TCH3 + NT9 + CSD chain over the
-            # rings) runs before any fetch; rare same-block activations /
-            # realigns re-run a small correction phase for just those
-            # carriers.  A split mesh runs it once a carrier group, on the
-            # group's device, over the group's own rings
+            # the whole block (control for every carrier; TCH3 + NT9 + CSD
+            # chain over the rings for those with a traffic channel) runs
+            # before any fetch; rare same-block activations / realigns
+            # re-run a small correction phase for just those carriers.  A
+            # split mesh runs it once a carrier group, on the group's
+            # device, over the group's own rings
             with span("meta", prof):
                 slot = {id(c): i for i, c in enumerate(self.carriers)}
                 mb = self._build_meta({id(c) for c in active}, F)
                 self._last_meta = mb
+                n_t = mb["t"].size
                 self._count("dec", bcch=mb["idx_b"].size,
-                            ccch=mb["idx_c"].size, tch3=mb["idx_t"].size,
-                            nt9=mb["idx_9"].size)
+                            ccch=mb["idx_c"].size, tch3=n_t * F, nt9=n_t * F)
+                self._count("phase", slots=len(self.carriers),
+                            traffic_slots=n_t)
                 groups = self._groups()
                 sizes = [hi - lo for _, lo, hi in groups]
                 if self._il is None \
@@ -1166,12 +1222,17 @@ class WidebandReceiver:
                      and id(c) not in new_ids
                      and c.cd.align == pre3[id(c)][1]]
             if cars3:
-                rows3 = np.fromiter((slot[id(c)] for c in cars3), np.int64,
-                                    len(cars3))
+                slots3 = np.fromiter((slot[id(c)] for c in cars3), np.int64,
+                                     len(cars3))
+                # their rows of the traffic results, and of each group's
+                # soft bits (the group's rows follow those of the groups
+                # before it)
+                rows3 = mb["trow"][slots3]
+                t_lo = np.searchsorted(mb["t"], [lo for _, lo, _ in groups])
                 fev += self._walk_tch3_vec(
                     cars3, rows3, res, {}, F,
-                    [(bigs[j]["f_ebits"], r)
-                     for j, r in (divmod(int(i), sizes[0]) for i in rows3)])
+                    [(bigs[j]["f_ebits"], int(r - t_lo[j]))
+                     for j, r in zip(slots3 // sizes[0], rows3)])
             supp = tch3_new + [
                 c for c in active
                 if pre3[id(c)][0] and id(c) not in new_ids
@@ -1501,11 +1562,13 @@ class WidebandReceiver:
         come from _tch9_fix)."""
         a9, act, started, fns = mb["a9"], mb["act"], mb["started"], \
             mb["fns"]
-        sid, badf9 = res["sid9"], res["badf9"]
+        # absent where no block phase ran a traffic half
+        sid, badf9 = res.get("sid9"), res.get("badf9")
         for car in active:
             i = slot[id(car)]
             if not (a9[i] and act[i]):
                 continue
+            r = mb["trow"][i]       # its row of the traffic results
             bound = fix_bound.get(id(car))
             ok = started[i] if bound is None \
                 else started[i] & (fns[i] < bound)
@@ -1514,13 +1577,13 @@ class WidebandReceiver:
             # cd.tch9.tn, but these frames decoded on the OLD slot
             tn = pre9[id(car)][3]
             for f in np.flatnonzero(ok):
-                if sid[i, f] == 0:
-                    if not badf9[i, f]:
+                if sid[r, f] == 0:
+                    if not badf9[r, f]:
                         self._emit(car,
                                    gsmtap.GMR1_TCH9 | gsmtap.GMR1_FACCH,
-                                   int(fns[i, f]), tn, res["l2f9"][i, f])
+                                   int(fns[i, f]), tn, res["l2f9"][r, f])
                 else:
-                    l2 = res["l2a"][i, f]
+                    l2 = res["l2a"][r, f]
                     self._emit(car, gsmtap.GMR1_TCH9, int(fns[i, f]),
                                tn, l2)
                     car.csd.append(l2.tobytes())
@@ -1626,8 +1689,9 @@ class WidebandReceiver:
         on the resident state after run(): the receiver's throughput with
         the host reads, uploads and walks out of the picture.  One warm
         call, then `iters` calls between device synchronizations (on the
-        CPU the same calls, timed).  A split mesh runs the phase once a
-        carrier group, as run() does."""
+        CPU the same calls, timed).  The phase is the last block's, its
+        traffic half on that block's slots with a traffic channel; a split
+        mesh runs it once a carrier group, as run() does."""
         if self._last_put is None or self._last_meta is None:
             raise RuntimeError("run() first")
         prof = dict(self.prof)      # the re-runs are no section of run()

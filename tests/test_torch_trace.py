@@ -13,7 +13,9 @@ FACCH3, FACCH9 and CSD on one of three carriers), on the CPU.
     iteration's wall;
   * dec.<kind> counts every window the phases decode (by hand from the
     schedules the block built), read.<kind> the windows the walks read,
-    at most as many, and with traffic some TCH3 and NT9 windows.
+    at most as many, and with traffic some TCH3 and NT9 windows;
+    phase.slots and phase.traffic_slots the carrier slots the block
+    phases' control and traffic halves ran on.
 """
 
 import json
@@ -154,7 +156,8 @@ def test_top_level_within_wall(runs):
 def _by_hand(log, f_cnt: int) -> dict:
     """Windows decoded a kind: every carrier slot's BCCH and CCCH columns
     (as many as the most any slot has in the block, at least one) and
-    TCH3 and NT9 windows (one a frame) in the block phase; the
+    the TCH3 and NT9 windows (one a frame) of the slots with a traffic
+    channel at the block's start (`t`) in the block phase; the
     correction phases' slots, one window a frame; 4 bursts in each of
     two variants a FACCH3 flush."""
     n = dict.fromkeys(WINDOW_KINDS, 0)
@@ -162,8 +165,8 @@ def _by_hand(log, f_cnt: int) -> dict:
         slots = m["is_b"].shape[0]
         n["bcch"] += slots * max(1, int(m["is_b"].sum(1).max()))
         n["ccch"] += slots * max(1, int(m["is_c"].sum(1).max()))
-        n["tch3"] += slots * f_cnt
-        n["nt9"] += slots * f_cnt
+        n["tch3"] += len(m["t"]) * f_cnt
+        n["nt9"] += len(m["t"]) * f_cnt
     for (cars, kind, _f), _m in log["_build_sub_meta"]:
         n["tch3" if kind == "tch3" else "nt9"] += len(cars) * f_cnt
     for (jobs,), _out in log["_decode_facch"]:
@@ -176,6 +179,20 @@ def test_decoded_windows_by_hand(runs, kind):
     rx = runs["plain"]
     assert rx.counts[f"dec.{kind}"] == \
         _by_hand(runs["log"], rx.block_frames)[kind] > 0
+    assert runs["traced"].counts == rx.counts
+
+
+@pytest.mark.parametrize("key", ["slots", "traffic_slots"])
+def test_phase_slots_by_hand(runs, key):
+    """The slots of every block phase, and of its traffic half: the
+    active slots with TCH3 or TCH9 up at the block's start, some but
+    not all of them on the e2e capture."""
+    metas = [m for _a, m in runs["log"]["_build_meta"]]
+    want = dict(slots=sum(m["is_b"].shape[0] for m in metas),
+                traffic_slots=sum(len(m["t"]) for m in metas))
+    rx = runs["plain"]
+    assert rx.counts[f"phase.{key}"] == want[key]
+    assert 0 < rx.counts["phase.traffic_slots"] < rx.counts["phase.slots"]
     assert runs["traced"].counts == rx.counts
 
 

@@ -10,7 +10,10 @@ input sample s0 (a multiple of M) and channel k,
 with x = 0 before the stream's start.  Computed here in float64 NumPy
 from the input samples and a prototype this module designs itself (the
 windowed-sinc designs of the reference front end, gmr1_rx_sdr.py:420-437,
-as GNU Radio's firdes): it shares nothing with the program.  The control
+as GNU Radio's firdes: the Hamming `prototype`, or `prototype_nx`, the
+perfect-reconstruction design the bank takes when wide carriers are
+configured): it shares nothing with the program.  At a rate off the
+grid the input is the capture resampled onto it (pre.py).  The control
 is the same bank with the channel DFT's operands rounded to fp8 (e4m3,
 one scale a tensor), the precision below the bf16 the configuration
 states.
@@ -32,6 +35,24 @@ def prototype(m: int, grid: float = 31250.0) -> np.ndarray:
     k = np.arange(ntaps) - (ntaps - 1) / 2.0
     h = grid / fs * np.sinc(grid / fs * k)
     h *= 0.54 - 0.46 * np.cos(2 * np.pi * np.arange(ntaps) / (ntaps - 1))
+    h /= h.sum()
+    p = -(-len(h) // m)
+    out = np.zeros(p * m)
+    out[:len(h)] = h
+    return out
+
+
+def prototype_nx(m: int) -> np.ndarray:
+    """The perfect-reconstruction prototype (gmr1_rx_sdr.py:420-428),
+    zero-padded to P M taps: firdes.low_pass_2 (gain 1, rate M, cutoff
+    half a channel, transition a fifth, 80 dB, Blackman-Harris)."""
+    ntaps = int(80.0 * m / (22.0 * 0.2)) | 1
+    n = np.arange(ntaps)
+    k = n - (ntaps - 1) / 2.0
+    h = np.sinc(k / m) / m
+    a = 2 * np.pi * n / (ntaps - 1)
+    h *= (0.35875 - 0.48829 * np.cos(a) + 0.14128 * np.cos(2 * a)
+          - 0.01168 * np.cos(3 * a))
     h /= h.sum()
     p = -(-len(h) // m)
     out = np.zeros(p * m)

@@ -1,11 +1,14 @@
 """Faults planted under a run, to show that the check catches them
-(portbench/tests/test_pb_faults.py on the CPU; `sweep.py --fault` on the
-card, for the upper readings of the numbers compared).  Each takes the
-fresh WidebandReceiver and breaks its timed path in place."""
+(portbench/tests/test_pb_faults.py and test_pb_offgrid_faults.py on the
+CPU; `sweep.py --fault` on the card, for the upper readings of the
+numbers compared).  Each takes the fresh WidebandReceiver and breaks its
+timed path in place.  FAULTS break every configuration; OFF_GRID_FAULTS
+break the pre-resampler, which only a rate off the grid runs."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def state_unchanged(rx) -> None:
@@ -52,5 +55,33 @@ def fn_altered(rx) -> None:
     _every_tenth(rx, lambda fn, l2: (fn + 1, l2))
 
 
+def pre_slip(rx) -> None:
+    """Every pre-resampled sample one sample late: the capture delayed
+    by one sample at the wideband rate, far less than a symbol, which
+    the frames do not show."""
+    orig, last = rx._pre.produce_block, [None]
+
+    def produce_block():
+        out, n_valid = orig()
+        prev = out[:1] * 0 if last[0] is None else last[0]
+        last[0] = out[-1:].clone()
+        return torch.cat([prev, out[:-1]]), n_valid
+    rx._pre.produce_block = produce_block
+
+
+def pre_tail_lost(rx) -> None:
+    """The raw tail the pre-resampler carries on the host from one block
+    to the next is lost (zeros): only each block's first outputs, whose
+    taps reach back into it, go wrong."""
+    pre = rx._pre
+    orig = pre.produce_block
+
+    def produce_block():
+        pre._raw = np.zeros_like(pre._raw)
+        return orig()
+    pre.produce_block = produce_block
+
+
 FAULTS = {f.__name__: f for f in (state_unchanged, half_batch,
                                   answer_altered, fn_altered)}
+OFF_GRID_FAULTS = {f.__name__: f for f in (pre_slip, pre_tail_lost)}

@@ -22,14 +22,17 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from gmr1_tpu_torch.channelizer.arfcn import Channel
 from gmr1_tpu_torch.rx.cfile import SampleSource
 from gmr1_tpu_torch.rx.wideband import WidebandReceiver
 
-from . import bank, check, rrc, scene
+from . import bank, check, pre, rrc, scene
 
 BANK_ROWS = 128            # bank rows the reference recomputes a recording
 STREAM_CHANS = 64          # carrier streams the reference recomputes ...
 STREAM_OUTS = 512          # ... at this many samples each, a recording
+PRE_OUTS = 8192            # pre-resampled samples it recomputes (off-grid):
+PRE_JOIN = 4096            # this many straddle the start of a block
 FORBIDDEN = ("jax", "jaxlib", "flax", "gmr1_tpu")
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -73,12 +76,15 @@ class Run:
     locked: dict
     prof: dict
     iters: int
+    counts: dict = field(default_factory=dict)      # rx.counts
     bank_rows: np.ndarray | None = None
     bank_b: int = 0
     bank_sel: np.ndarray | None = None
     stream_sel: np.ndarray | None = None    # (channels, outputs)
     stream_in: np.ndarray | None = None     # their bank rows, and history
     stream_out: np.ndarray | None = None    # their streams at the outputs
+    pre_idx: np.ndarray | None = None       # pre-resampled samples kept
+    pre_out: np.ndarray | None = None       # their values
     stretch: dict = field(default_factory=dict)
 
 
@@ -126,11 +132,21 @@ class Harness:
             torch.cuda.empty_cache()
 
     def receiver(self, x: np.ndarray, sink) -> tuple:
+        """A fresh receiver over x, with the configuration's settings:
+        `beams` and `wide_channels` ([[arfcn, width], ...]) where it
+        states them, as the CLI's --beams and --wide ARFCNxW pass them."""
         src = TimedSource(x)
-        p = self.plans[0]
+        p, cfg = self.plans[0], self.cfg
+        opts = {}
+        if "beams" in cfg:
+            opts["beams"] = cfg["beams"]
+        if "wide_channels" in cfg:
+            opts["wide_channels"] = [Channel(a, width=w)
+                                     for a, w in cfg["wide_channels"]]
         rx = WidebandReceiver(
             src, p.fs, p.center, sps=scene.SPS, sink=sink,
-            h2d_dtype=self.cfg.get("h2d_dtype", "float32"), device=self.dev)
+            h2d_dtype=cfg.get("h2d_dtype", "float32"), device=self.dev,
+            **opts)
         if self.hook is not None:
             self.hook(rx)
         return rx, src
@@ -168,6 +184,7 @@ class Harness:
             if c.speech:
                 rec.speech.setdefault(c.arfcn, []).extend(c.speech)
         rec.prof = dict(rx.prof)
+        rec.counts = dict(rx.counts)
         rec.iters = len(rx.block_profs)
         # the wrappers (_wrap) hold the receiver in a reference cycle:
         # drop its attributes so that it, and its device tensors, go now
@@ -180,9 +197,13 @@ class Harness:
     def _bank_hooks(self, rx, rec: Run, i: int) -> None:
         """Keep, from one block drawn from the seed, as the ingest step
         makes them and on the device until the window ends: BANK_ROWS rows
-        of its bank; and of STREAM_CHANS carriers, their bank rows (with
-        the history the step carries) and their streams at STREAM_OUTS of
-        the block's new samples."""
+        of its bank; of STREAM_CHANS carriers, their bank rows (with the
+        history the step carries) and their streams at STREAM_OUTS of the
+        block's new samples; and, off the grid, PRE_OUTS samples of the
+        step's input (the pre-resampler's output): PRE_JOIN around the
+        block's start, where the tail the pre-resampler carries from the
+        block before joins this block's geometry, and the rest from a
+        drawn sample of the block on."""
         rng = np.random.default_rng([self.seed, i, 3])
         n_blocks = rec.n // rx.n_block
         rec.bank_b = int(rng.integers(min(2, n_blocks - 1),
@@ -193,6 +214,13 @@ class Harness:
         ch = np.sort(rng.choice(m, min(STREAM_CHANS, m), replace=False))
         outs = np.sort(rng.choice(s_b, STREAM_OUTS, replace=False))
         rec.stream_sel = (ch, outs)
+        half, rest = PRE_JOIN // 2, PRE_OUTS - PRE_JOIN
+        pre_at = int(rng.integers(half, rx.n_block - rest))
+        off_grid = scene.off_grid(self.cfg)
+        b0 = rec.bank_b * rx.n_block
+        rec.pre_idx = np.concatenate([b0 + np.arange(-half, half),
+                                      b0 + pre_at + np.arange(rest)])
+        join = [None]                   # the end of the block before
         sel = torch.as_tensor(rec.bank_sel, device=self.dev)
         ch_t = torch.as_tensor(ch, device=self.dev)
         cur = [None]
@@ -203,9 +231,14 @@ class Harness:
         def after_ingest(_out, b):
             cur[0] = None
 
-        def after_step(out, _x, *state):
+        def after_step(out, x, *state):
+            if off_grid and cur[0] == rec.bank_b - 1:
+                join[0] = x[-half:].clone()
             if cur[0] != rec.bank_b:
                 return
+            if off_grid:
+                rec.pre_out = torch.cat([join[0], x[:half],
+                                         x[pre_at:pre_at + rest]])
             stream, rows = out[0], out[1]
             rec.bank_rows = rows[:, sel].clone()
             rec.stream_in = torch.cat([state[1][ch_t], rows[ch_t]], 1)
@@ -258,17 +291,23 @@ class Harness:
 
 def bank_check(h: Harness, rec: Run, fp8: bool = False) -> float | None:
     """Relative RMS error of the captured bank rows against the plain
-    reference (the fp8 control's, with fp8)."""
+    reference (the fp8 control's, with fp8): the bank of the recording,
+    or of its plain resampling onto the grid (pre.py) at a rate off it,
+    with the perfect-reconstruction prototype where wide carriers are
+    configured, the Hamming one otherwise."""
     if rec.bank_rows is None:
         return None
     m = h.cfg["n_chans"]
-    proto = bank.prototype(m)
+    proto = bank.prototype_nx(m) if h.cfg.get("wide_channels") \
+        else bank.prototype(m)
     n_block = h.cfg["block_frames"] * 2500 * (m // 2)
     x = h.recs[h.plans.index(rec.plan)]
-
-    def read(lo, hi):
-        seg = x[lo:hi].astype(np.float64)
-        return seg[:, 0] + 1j * seg[:, 1]
+    if scene.off_grid(h.cfg):
+        read = pre.reader(x, pre.ratio(h.cfg["fs"], m))
+    else:
+        def read(lo, hi):
+            seg = x[lo:hi].astype(np.float64)
+            return seg[:, 0] + 1j * seg[:, 1]
     z, ph = bank.fold(read, rec.bank_b * n_block, rec.bank_sel, m, proto)
     ref = bank.bank(z, ph)
     if fp8:
@@ -300,15 +339,33 @@ def stream_check(h: Harness, rec: Run, tf32: bool = False) -> float | None:
     return bank.rel_err(got, ref)
 
 
+def pre_check(h: Harness, rec: Run, tf32: bool = False) -> float | None:
+    """Relative RMS error of the captured pre-resampled samples against
+    the plain resampler (pre.py) of the recording (the TF32 control's,
+    with tf32); None on the grid."""
+    if rec.pre_out is None:
+        return None
+    x = h.recs[h.plans.index(rec.plan)]
+    r = pre.ratio(h.cfg["fs"], h.cfg["n_chans"])
+    ref = pre.resample(x, rec.pre_idx, r)
+    if tf32:
+        got = pre.resample(x, rec.pre_idx, r, tf32=True)
+    else:
+        got = rec.pre_out.cpu().double().numpy()
+        got = got[:, 0] + 1j * got[:, 1]
+    return bank.rel_err(got, ref)
+
+
 def latencies(rec: Run) -> np.ndarray:
     """Seconds from the source handing over a frame's last sample to the
-    sink receiving the frame, for every frame of the run."""
+    sink receiving the frame, for every frame of the run, each on the
+    timing of the carrier, beam or wide carrier that sent it."""
     cum = [c for c, _t in rec.reads]
     ts = [t for _c, t in rec.reads]
     p = rec.plan
     out = np.empty(len(rec.sent))
-    for j, (_a, t, fn, tn, _l2, t_send) in enumerate(rec.sent):
-        end = int(np.ceil(p.frame_end_s(t, fn, tn) * p.fs))
+    for j, (a, t, fn, tn, _l2, t_send) in enumerate(rec.sent):
+        end = int(np.ceil(p.frame_end_s(a, t, fn, tn) * p.fs))
         end = min(max(end, 1), rec.n)
         i = min(bisect.bisect_left(cum, end), len(ts) - 1)
         out[j] = t_send - ts[i]
@@ -317,10 +374,14 @@ def latencies(rec: Run) -> np.ndarray:
 
 def judge(h: Harness, rec: Run) -> dict:
     """Frames and speech against the truth (check.judge), and the lock of
-    every seeded carrier."""
+    every seeded narrow carrier: as many carriers on each ARFCN as it has
+    beams.  (A wide carrier's own receiver acquires it: its frames tell.)"""
     r = check.judge(rec.plan, [s[:5] for s in rec.sent], rec.speech)
-    r["unlocked"] = sum(c.arfcn not in rec.locked
-                        for c in rec.plan.carriers)
+    two = rec.plan.two_beams()
+    r["unlocked"] = sum(max(0, 1 + (c.arfcn in two)
+                            - rec.locked.get(c.arfcn, 0))
+                        for c in rec.plan.carriers
+                        if c.width == 1 and not c.beam)
     return r
 
 
@@ -345,8 +406,9 @@ def forbidden_modules() -> list:
 
 def needed_bursts(rec: Run) -> dict:
     """{kind: count} of the bursts the stretch's traffic needed decoded:
-    each seeded ARFCN's bursts in the frames its carriers processed
-    during the stretch (from the carriers' frame counters)."""
+    each seeded narrow ARFCN's bursts (both beams' where it has two) in
+    the frames its carriers processed during the stretch (from the
+    carriers' frame counters)."""
     st, p = rec.stretch, rec.plan
     span: dict = {}
     for key, (a, fn1) in st.get("fn1", {}).items():
@@ -354,14 +416,13 @@ def needed_bursts(rec: Run) -> dict:
             fn0 = st["fn0"][key][1]
             lo, hi = span.get(a, (fn0, fn1))
             span[a] = (min(lo, fn0), max(hi, fn1))
-    ci_of = {c.arfcn: ci for ci, c in enumerate(p.carriers)}
     counts: dict = {}
     for kind in ("bcch", "ccch", "speech", "facch3", "facch9", "csd"):
         n = 0
         for x in p.bursts[kind]:
             ci, k = x[0], x[1]
             a = p.carriers[ci].arfcn
-            if a not in span or ci_of.get(a) != ci:
+            if a not in span or p.carriers[ci].width > 1:
                 continue
             lo, hi = span[a]
             if kind == "csd":

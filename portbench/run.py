@@ -13,10 +13,12 @@ then replays the recordings through a fresh `WidebandReceiver.run()`
 each, back to back, until --seconds have passed (the window holds whole
 recordings).  With --trace 1 the block-loop iterations 4-9 of the
 window's second recording run under torch.profiler, and the line carries
-the per-layer metrics instead of the end-to-end ones.  Once the window has
-closed it judges every recording's frames against the truth, and a
-sample of the channel bank and of the carrier streams against the plain
-references (bank.py, rrc.py), prints the numbers
+the per-layer metrics instead of the end-to-end ones; each reader gets
+the context `context` builds.  Once the window has closed it judges
+every recording's frames against the truth, and a sample of the channel
+bank and of the carrier streams against the plain references (bank.py,
+rrc.py) and, at a rate off the grid, one of the pre-resampled capture
+(pre.py), prints the numbers
 compared with their limits on standard error and, as the last line of
 standard output, one JSON object.  Without a CUDA card it exits 2 and
 prints no result.
@@ -48,7 +50,8 @@ STRETCH = (4, 10)          # profiled block-loop iterations, --trace 1
 
 # checks: limits set from the readings in PERF.md (section 2)
 LIMITS = {"wrong": 0, "leaked": 0, "missed": 0, "unlocked": 0,
-          "unsent_rec": 10, "bank_err": 0.01, "stream_err": 5e-6}
+          "unsent_rec": 10, "bank_err": 0.01, "stream_err": 5e-6,
+          "pre_err": 5e-6}
 EXACT = ("wrong", "leaked", "missed", "unlocked")
 
 
@@ -74,13 +77,26 @@ def _per_layer(bench: dict, cell: dict) -> list:
                 else m["moves"] in e2e)]
 
 
+def context(cfg: dict, mix: dict, runs: list) -> dict:
+    """What every per-layer reader is handed: the configuration and the
+    mix, the window's recordings and block-loop iterations, and their
+    `prof` sections and `counts` (the receivers' rx.counts), summed."""
+    def total(key):
+        dicts = [getattr(r, key) for r in runs]
+        return {k: sum(d.get(k, 0) for d in dicts)
+                for k in set().union(*dicts)}
+    return dict(cfg=cfg, mix=mix, runs=len(runs),
+                iters=sum(r.iters for r in runs), prof=total("prof"),
+                counts=total("counts"))
+
+
 def measure(cfg: dict, mix: dict, seed: int, seconds: float, traced: bool,
             dev, metrics: list, hook=None) -> tuple[dict, dict]:
     """One run: (result fields, checks {name: (value, limit)}); `hook`
     (tests only) is handed each fresh receiver."""
     import torch
 
-    from portbench import harness, trace
+    from portbench import check, harness, scene, trace
 
     t = time.perf_counter()
     h = harness.Harness(cfg, mix, seed, dev, hook=hook)
@@ -116,13 +132,15 @@ def measure(cfg: dict, mix: dict, seed: int, seconds: float, traced: bool,
     # ---- the check, after the window -----------------------------------
     n = dict(wrong=0, leaked=0, missed=0, unlocked=0, unjudged=0, due=0)
     unsent = []
-    lat, errs, serrs, findings = [], [], [], []
+    lat, errs, serrs, perrs, findings = [], [], [], [], []
+    by_arfcn: dict = {}
     for rec in runs:
         r = harness.judge(h, rec)
         for k in n:
             n[k] += r[k]
         unsent.append(r["unsent"])
         findings += r["findings"]
+        check.add_by_arfcn(by_arfcn, r["by_arfcn"])
         lat.append(harness.latencies(rec))
         e = harness.bank_check(h, rec)
         if e is not None:
@@ -130,14 +148,23 @@ def measure(cfg: dict, mix: dict, seed: int, seconds: float, traced: bool,
         e = harness.stream_check(h, rec)
         if e is not None:
             serrs.append(e)
-    for line in findings[:40]:
+        e = harness.pre_check(h, rec)
+        if e is not None:
+            perrs.append(e)
+    for line in check.rare_first(findings, by_arfcn)[:40]:
         print(f"finding: {line}", file=sys.stderr)
+    for kind, per in sorted(by_arfcn.items()):
+        print(f"findings {kind} by ARFCN: {dict(sorted(per.items()))}",
+              file=sys.stderr)
     checks = {k: (n[k], LIMITS[k]) for k in EXACT}
     checks["unsent_rec"] = (max(unsent), LIMITS["unsent_rec"])
     checks["bank_err"] = (max(errs) if errs else float("inf"),
                           LIMITS["bank_err"])
     checks["stream_err"] = (max(serrs) if serrs else float("inf"),
                             LIMITS["stream_err"])
+    if scene.off_grid(cfg):
+        checks["pre_err"] = (max(perrs) if perrs else float("inf"),
+                             LIMITS["pre_err"])
     out = dict(correct=all(v <= lim for v, lim in checks.values()),
                attempted=n["due"],
                failed=n["wrong"] + n["leaked"] + n["missed"],
@@ -161,10 +188,7 @@ def measure(cfg: dict, mix: dict, seed: int, seconds: float, traced: bool,
         rec = runs[1]
         st = rec.stretch
         st["restore"]()
-        ctx = dict(cfg=cfg, mix=mix, runs=len(runs),
-                   iters=sum(r.iters for r in runs),
-                   prof={k: sum(r.prof.get(k, 0.0) for r in runs)
-                         for k in set().union(*(r.prof for r in runs))})
+        ctx = context(cfg, mix, runs)
         if "prof" in st:
             path = os.path.join(CACHE, "trace.json")
             os.makedirs(CACHE, exist_ok=True)

@@ -2,10 +2,12 @@
 torch.profiler chrome trace, beside the device timeline.
 
 trace.read labels the device's idle time with the benchmark's `pb.*`
-spans only; this reader takes the `rx.*` ranges of the thread that holds
-`rx.block` and sums, by range name, the kernels launched inside it, their
-device seconds and the device's idle seconds inside it.  spans.py uses it
-to split a block's idle time by the program's sections.
+spans, and hands over under `rx` what this reader makes of the same
+trace: it takes the `rx.*` ranges of the thread that holds `rx.block`
+and sums, by range name, the kernels launched inside it, their device
+seconds and the device's idle seconds inside it.  spans.py splits a
+block's idle time by the program's sections with it, and per-layer
+readers find it in their context's trace.
 """
 
 from __future__ import annotations
@@ -29,6 +31,12 @@ def _busy_in(busy_iv: list, starts: list, a: float, b: float) -> float:
 
 
 def read(path: str) -> dict:
+    """from_events of a chrome trace file."""
+    with open(path) as f:
+        return from_events(json.load(f)["traceEvents"])
+
+
+def from_events(ev: list) -> dict:
     """The `rx.*` ranges of the thread that holds `rx.block` ([name
     without the prefix, start, end], microseconds) and, by range name:
     `launches` and `device_s`, the kernels whose launch lies inside one
@@ -39,8 +47,6 @@ def read(path: str) -> dict:
     `families`: each family's [kernels, those launched inside an rx
     range, blocks with one launched inside `rx.dispatch`].  Empty where
     the trace has no `rx.block` or no device activity."""
-    with open(path) as f:
-        ev = json.load(f)["traceEvents"]
     dev = [e for e in ev if e.get("cat") in DEVICE_CATS and "dur" in e]
     launch = {e["args"]["correlation"]: e["ts"] for e in ev
               if e.get("cat") in ("cuda_runtime", "cuda_driver")

@@ -11,6 +11,28 @@ FCCH chirps and DKAB tones), one FFT a carrier, its band placed at the
 carrier's bins of one wideband spectrum, one inverse FFT.  A bin is
 1 / recording_s Hz on both sides, so the placement is exact.
 
+The configuration's `arfcns` is the live range; a configuration whose
+rate is off the 31.25 kHz grid states it as every grid column its
+capture spans, as the sky fills them.  Two optional keys add what such a
+deployment hears besides:
+  beam2_every   every ARFCN of the live range that divides by it also
+                carries a second spot beam (gmr1_rx.c:643-741): its own
+                FCCH 3 frames after the first beam's, in place of the
+                first beam's CCCH, and its own SI1s 3 frames after the
+                first beam's, announcing sa_sirfn_delay 3.  Neither beam
+                sends a CCCH or a call there, so every frame's fn says
+                which beam sent it.  The second beam has its own timing:
+                a few symbols after the first.  No public source gives
+                the share of ARFCNs with two beams or what each sends:
+                the key and this shape are chip_smoke.py's synthetic
+                stream (build_stream(beam2=True)), not measured traffic.
+  wide_channels [[arfcn, width], ...]: wide carriers, each FCCH, SI1 and
+                a CCCH at width x 23.4 ksym/s (936-symbol frames at that
+                rate) on the columns it spans, left empty for it with one
+                guard column on each side; each has its own timing, and
+                its frames are due from its own receiver's latency
+                (`_wide_due`).
+
 Control on every carrier: FCCH at k % 8 == 0, SI1 (BCCH) at k % 8 == 2
 and a CCCH at k % 8 == 3 that is never an IMM.ASS unless it starts a call.
 With `calls`, every carrier runs calls one after another from a random
@@ -44,6 +66,11 @@ GRID = 31250.0
 FRAME4 = modem.FRAME_SYMS * SPS          # 3744 samples a frame at 4 sps
 TN3, P3 = 10, 9                          # the IMM.ASS TCH3 slot, DKAB P
 TRAIN = 5                                # bursts of a CSD train
+BEAM2_FRAMES = 3                         # frames a second beam lags by
+# a carrier receiver's acquisition (gmr1_rx.c): samples it skips (:52),
+# then the FCCH scan (:605) and the multi-beam scan from it (:643), in ms
+# of 23.4 ksym/s at SPS samples a symbol
+START_DISCARD, SCAN_MS, BEAMS_MS = 8000, 330, 650
 KEY = bytes(8)                           # the receiver's default A5/1 key
 
 # GSMTap channel types (libosmocore gsmtap.h)
@@ -61,6 +88,9 @@ LAST = {FACCH3: 3}
 class Carrier:
     arfcn: int
     story: str | None = None           # first call's story, None: no calls
+    beam: int = 0                      # 1: the ARFCN's second beam
+    width: int = 1                     # subchannels of a wide carrier
+    lead_s: float = 0.0                # noise before its frame 0
 
 
 @dataclass
@@ -84,13 +114,37 @@ class Plan:
     seed: int = 0
     index: int = 0
     by_content: dict | None = None     # check.judge's index, made once
+    # (arfcn, type, fn) -> index of the carrier that sent it
+    sender: dict = field(default_factory=dict)
+    first: dict | None = None          # arfcn -> its first carrier, made once
 
-    def frame_end_s(self, gtype: int, fn: int, tn: int) -> float:
+    def two_beams(self) -> set:
+        """The ARFCNs that carry a second beam."""
+        return {c.arfcn for c in self.carriers if c.beam}
+
+    def timing(self, arfcn: int, gtype: int, fn: int) -> Carrier:
+        """The carrier whose timing a frame emitted at (arfcn, type, fn)
+        follows: its sender, else the ARFCN's first carrier, else (a
+        stray ARFCN) the first beam's."""
+        ci = self.sender.get((arfcn, gtype, fn))
+        if ci is None:
+            if self.first is None:
+                self.first = {}
+                for i, c in enumerate(self.carriers):
+                    self.first.setdefault(c.arfcn, i)
+            ci = self.first.get(arfcn)
+        if ci is not None:
+            return self.carriers[ci]
+        return Carrier(arfcn, lead_s=self.lead_s)
+
+    def frame_end_s(self, arfcn: int, gtype: int, fn: int, tn: int) -> float:
         """Seconds from the recording's start to the end of the last
-        burst of a frame the receiver emits as (type, fn, tn)."""
+        burst of a frame the receiver emits as (arfcn, type, fn, tn), on
+        the timing of the carrier that sent it."""
+        c = self.timing(arfcn, gtype, fn)
         k = fn - self.fn_base + LAST.get(gtype, 0)
         syms = k * modem.FRAME_SYMS + (tn + SLOTS.get(gtype, 3)) * modem.SLOT
-        return self.lead_s + syms / SYM_RATE
+        return c.lead_s + syms / (SYM_RATE * c.width)
 
 
 def _imm_ass(rng) -> np.ndarray:
@@ -110,12 +164,32 @@ def _ass_cmd_1(rng, tn9: int) -> np.ndarray:
     return l2
 
 
+def off_grid(cfg: dict) -> bool:
+    """Is the configuration's rate off the 31.25 kHz grid of its M
+    channels (the receiver then pre-resamples the capture onto it)?"""
+    return float(cfg["fs"]) != cfg["n_chans"] * GRID
+
+
 def carriers(cfg: dict, mix: dict) -> list:
-    """The configuration's live carriers: every ARFCN of `arfcns` (a
-    [first, last] range)."""
+    """The configuration's carriers: every ARFCN of `arfcns` (a [first,
+    last] range) but the columns of its wide carriers and their guards,
+    then the second beams (`beam2_every`), then the wide carriers."""
     lo, hi = cfg["arfcns"]
-    return [Carrier(a, ("e2e", "reassign")[a % 2] if mix.get("calls")
-                    else None) for a in range(lo, hi + 1)]
+    wide = cfg.get("wide_channels", [])
+    empty = {b for a, w in wide
+             for b in range(a - (w - 1) // 2 - 1, a + (w + 2) // 2 + 1)}
+    every = cfg.get("beam2_every", 0)
+    out, two = [], []
+    for a in range(lo, hi + 1):
+        if a in empty:
+            continue
+        if every and a % every == 0:
+            out.append(Carrier(a))
+            two.append(Carrier(a, beam=1))
+        else:
+            out.append(Carrier(a, ("e2e", "reassign")[a % 2]
+                               if mix.get("calls") else None))
+    return out + two + [Carrier(a, width=w) for a, w in wide]
 
 
 def plan(cfg: dict, mix: dict, seed: int, index: int) -> Plan:
@@ -135,13 +209,32 @@ def plan(cfg: dict, mix: dict, seed: int, index: int) -> Plan:
     b = {k: [] for k in ("fcch", "dkab", "bcch", "ccch", "speech", "facch3",
                          "facch9", "csd")}
     p.bursts = b
+    two = p.two_beams()
+    # the second beams' and the wide carriers' timing and payloads come
+    # from a stream of their own: the first beams' draws stay as they are
+    rng2 = np.random.default_rng([seed, index, 4])
+    for c in cars:
+        c.lead_s = p.lead_s
+        if c.beam:
+            c.lead_s += int(rng2.integers(0, 4 * modem.SLOT * SPS)) \
+                / (SYM_RATE * SPS)
+        elif c.width > 1:
+            rate = SYM_RATE * c.width * SPS
+            c.lead_s = int(rng2.uniform(*mix["lead_s"]) * rate) / rate
 
-    def truth(ci, gtype, k, payload):
-        ok = p.due_from <= k < p.due_to
-        p.frames[(cars[ci].arfcn, gtype, p.fn_base + k)] = (bytes(payload),
-                                                            ok)
+    def truth(ci, gtype, k, payload, due=(p.due_from, p.due_to)):
+        key = (cars[ci].arfcn, gtype, p.fn_base + k)
+        p.frames[key] = (bytes(payload), due[0] <= k < due[1])
+        p.sender[key] = ci
 
     for ci, c in enumerate(cars):
+        if c.width > 1:
+            _wide(rng2, ci, c, p, b, truth, int(round(rec_s / 0.04))
+                  * c.width)
+            continue
+        if c.beam:
+            _beam2(rng2, ci, p, b, truth, n_frames)
+            continue
         fr = n_frames - 1               # the last frame may not fit whole
         ks = np.arange(fr)
         b["fcch"] += [(ci, int(k), 0) for k in ks[ks % 8 == 0]]
@@ -150,6 +243,8 @@ def plan(cfg: dict, mix: dict, seed: int, index: int) -> Plan:
         for k, l2 in zip(kb.tolist(), si1):
             b["bcch"].append((ci, k, 0, l2))
             truth(ci, BCCH, k, l2)
+        if c.arfcn in two:              # the second beam's FCCH is here
+            continue
         if c.story is None:
             calls = set()
         else:
@@ -161,6 +256,63 @@ def plan(cfg: dict, mix: dict, seed: int, index: int) -> Plan:
             b["ccch"].append((ci, k, 0, l2))
             truth(ci, CCCH, k, l2)
     return p
+
+
+def _beam2(rng, ci: int, p: Plan, b: dict, truth, n_frames: int) -> None:
+    """An ARFCN's second beam: FCCH at k % 8 == 3 and SI1s announcing
+    sa_sirfn_delay 3 at k % 8 == 5 (tests/test_wideband.py:255-290)."""
+    ks = np.arange(n_frames - 1)
+    b["fcch"] += [(ci, int(k), 0) for k in ks[ks % 8 == BEAM2_FRAMES]]
+    kb = ks[ks % 8 == 2 + BEAM2_FRAMES]
+    si1 = _si1s(rng, p.fn_base + kb, np.full_like(kb, BEAM2_FRAMES))
+    for k, l2 in zip(kb.tolist(), si1):
+        b["bcch"].append((ci, k, 0, l2))
+        truth(ci, BCCH, k, l2)
+
+
+def _wide_due(p: Plan, c: Carrier, n_frames: int) -> tuple[int, int]:
+    """A wide carrier's due frames [first, last), from the latency of its
+    own receiver.  That receiver reads the carrier's 4-sps stream, whose
+    rate is width x 23.4 ksym/s, so its frames and its windows in samples
+    are those of a narrow carrier.  It skips START_DISCARD samples, takes
+    the FCCH of the SCAN_MS after them, and decodes from the strongest
+    FCCH of the BEAMS_MS from there: that SI cycle, or one or two later,
+    as the noise has it.  So frames are due from 16 (two cycles of the
+    BEAMS_MS) after the last FCCH that starts inside the first scan.  It decodes a frame while two
+    frames from its start lie inside its stream, and the stream runs to
+    the recording's end (the block that holds it is fed whole): frames
+    are due while three lie before that end, a frame of room for the
+    channelizer's delay of under a millisecond."""
+    lead = int(round(c.lead_s * SYM_RATE * c.width * SPS))
+    scan_end = START_DISCARD + SCAN_MS * int(SYM_RATE) * SPS // 1000
+    if lead >= scan_end:
+        raise ValueError(f"wide carrier {c.arfcn}: no FCCH starts inside "
+                         "its receiver's first scan")
+    last_fcch = (scan_end - lead) // FRAME4 // 8 * 8
+    later = BEAMS_MS * int(SYM_RATE) * SPS // 1000 // FRAME4 // 8 * 8
+    due_to = int((p.n / p.fs - c.lead_s) * n_frames / (p.n / p.fs)) - 2
+    return last_fcch + later, due_to
+
+
+def _wide(rng, ci: int, c: Carrier, p: Plan, b: dict, truth,
+          n_frames: int) -> None:
+    """A wide carrier's control: FCCH, SI1 and a CCCH (never an IMM.ASS)
+    every 8 of its frames, n_frames of them in the recording; due as
+    `_wide_due` says."""
+    ks = np.arange(n_frames - 1)
+    b["fcch"] += [(ci, int(k), 0) for k in ks[ks % 8 == 0]]
+    kb = ks[ks % 8 == 2]
+    due = _wide_due(p, c, n_frames)
+    for k, l2 in zip(kb.tolist(), _si1s(rng, p.fn_base + kb,
+                                        np.zeros_like(kb))):
+        b["bcch"].append((ci, k, 0, l2))
+        truth(ci, BCCH, k, l2, due)
+    kc = ks[ks % 8 == 3]
+    l2s = rng.integers(0, 256, (len(kc), 24), dtype=np.uint8)
+    l2s[:, 1] = 0x00
+    for k, l2 in zip(kc.tolist(), l2s):
+        b["ccch"].append((ci, k, 0, l2))
+        truth(ci, CCCH, k, l2, due)
 
 
 def _si1s(rng, fns: np.ndarray, delay: np.ndarray) -> np.ndarray:
@@ -263,15 +415,18 @@ def _dkab_table() -> np.ndarray:
 
 def _encoded(p: Plan, bursts: dict, ks: torch.Tensor, dev) -> list:
     """Every burst in `bursts` ({kind: [burst, ...]}, one chunk of
-    carriers) as (carrier indices, start samples at each carrier's 4 sps,
+    carriers) as (carrier indices, start samples at each carrier's 4 sps
+    on its own timing,
     waveforms (B, L) complex64, shaped): `shaped` for symbol streams at
     1 sps (pulse-shaped later), else raw 4-sps waveforms.  ks: the A5/1
     downlink keystreams of every frame of the recording (frame, 658)."""
     out = []
-    lead = int(round(p.lead_s * SYM_RATE * SPS))
+    lead = np.array([int(round(c.lead_s * SYM_RATE * c.width * SPS))
+                     for c in p.carriers])
 
     def add(ci, k, tn, wave, shaped):
-        st = lead + np.asarray(k) * FRAME4 + np.asarray(tn) * modem.SLOT * SPS
+        st = lead[np.asarray(ci)] + np.asarray(k) * FRAME4 \
+            + np.asarray(tn) * modem.SLOT * SPS
         out.append((np.asarray(ci), st, wave, shaped))
 
     def cols(r):
@@ -334,7 +489,9 @@ def _encoded(p: Plan, bursts: dict, ks: torch.Tensor, dev) -> list:
 
 
 def synthesize(p: Plan, sigma: float, dev, chunk: int = 64) -> np.ndarray:
-    """The recording's samples, planar (N, 2) float32 on the host."""
+    """The recording's samples, planar (N, 2) float32 on the host.
+    Carriers go in chunks of one group (first beams, second beams, each
+    wide carrier), each group at its own symbol rate."""
     rec_s = p.n / p.fs
     big = torch.zeros(p.n, dtype=torch.complex64, device=dev)
     rng = np.random.default_rng([p.seed, p.index, 1])
@@ -342,48 +499,29 @@ def synthesize(p: Plan, sigma: float, dev, chunk: int = 64) -> np.ndarray:
     n_frames = int(round(rec_s / 0.04))
     ks = torch.as_tensor(coding.a5_dl(KEY, p.fn_base + np.arange(n_frames),
                                       658), device=dev)
-    by_chunk: dict = {}
+    by_ci: dict = {}
     for kind, lst in p.bursts.items():
         for x in lst:
-            by_chunk.setdefault(x[0] // chunk, {}).setdefault(
-                kind, []).append(x)
-    n4 = int(round(rec_s * SYM_RATE * SPS))
-    h = _rc_spectrum(n4, dev)
-    half = int((0.675 * SYM_RATE + 3000.0) * rec_s)
-    kb = torch.arange(-half, half + 1, device=dev)
-    for c0 in range(0, len(p.carriers), chunk):
-        sel = np.arange(c0, min(c0 + chunk, len(p.carriers)))
-        raw = torch.zeros((len(sel), n4), dtype=torch.complex64, device=dev)
-        imp = torch.zeros_like(raw)
-        for ci, st, wave, shaped in _encoded(
-                p, by_chunk.get(c0 // chunk, {}), ks, dev):
-            row = torch.as_tensor(ci - c0, device=dev)
-            step = SPS if shaped else 1
-            off = torch.arange(wave.shape[-1], device=dev) * step
-            idx = row[:, None] * n4 + torch.as_tensor(st, device=dev)[
-                :, None] + off
-            keep = idx < (row[:, None] + 1) * n4          # inside the file
-            torch.view_as_real(imp if shaped else raw).view(-1, 2) \
-                .index_add_(0, idx[keep], torch.view_as_real(
-                    wave.to(torch.complex64)[keep]))
-        spec = torch.fft.fft(raw) + torch.fft.fft(imp) * h
-        del raw, imp
-        sub = spec[:, kb % n4]                           # (C, 2 half + 1)
-        del spec
-        rot = torch.as_tensor(np.exp(2j * np.pi * phase[sel]) * (p.n / n4),
-                              dtype=torch.complex64, device=dev)
-        off_hz = np.array([_freq(p, p.carriers[ci]) - p.center
-                           for ci in sel])
-        gb = torch.as_tensor(np.round(off_hz * rec_s).astype(np.int64),
-                             device=dev)[:, None] + kb
-        val = torch.view_as_real(sub * rot[:, None])
-        for par in (0, 1):      # neighbours' bands overlap: add the even
-            # and the odd carriers apart, so no call adds twice to a bin
-            # and the sum is the same on every run
-            torch.view_as_real(big).index_add_(
-                0, (gb[par::2] % p.n).reshape(-1),
-                val[par::2].reshape(-1, 2))
-        del sub
+            by_ci.setdefault(x[0], {}).setdefault(kind, []).append(x)
+    groups: list = []
+    for ci, c in enumerate(p.carriers):
+        if groups and groups[-1][0] == (c.width, c.beam):
+            groups[-1][1].append(ci)
+        else:
+            groups.append(((c.width, c.beam), [ci]))
+    for (width, _beam), cis in groups:
+        n4 = int(round(rec_s * SYM_RATE * width * SPS))
+        h = _rc_spectrum(n4, dev)
+        half = int((0.675 * SYM_RATE * width + 3000.0) * rec_s)
+        kb = torch.arange(-half, half + 1, device=dev)
+        for j in range(0, len(cis), chunk):
+            sel = np.asarray(cis[j:j + chunk])
+            bursts: dict = {}
+            for ci in sel.tolist():
+                for kind, lst in by_ci.get(ci, {}).items():
+                    bursts.setdefault(kind, []).extend(lst)
+            _place(p, big, sel, _encoded(p, bursts, ks, dev), n4, h, kb,
+                   phase, rec_s, dev)
     x = torch.fft.ifft(big)
     del big
     g = torch.Generator(device=dev)
@@ -394,6 +532,42 @@ def synthesize(p: Plan, sigma: float, dev, chunk: int = 64) -> np.ndarray:
     return out.cpu().numpy()
 
 
+def _place(p: Plan, big, sel: np.ndarray, enc: list, n4: int, h, kb,
+           phase: np.ndarray, rec_s: float, dev) -> None:
+    """Add the carriers `sel` (one chunk of one group, whose bursts are
+    `enc`) at their bins of the wideband spectrum `big`."""
+    c0 = int(sel[0])
+    raw = torch.zeros((len(sel), n4), dtype=torch.complex64, device=dev)
+    imp = torch.zeros_like(raw)
+    for ci, st, wave, shaped in enc:
+        row = torch.as_tensor(ci - c0, device=dev)
+        step = SPS if shaped else 1
+        off = torch.arange(wave.shape[-1], device=dev) * step
+        idx = row[:, None] * n4 + torch.as_tensor(st, device=dev)[
+            :, None] + off
+        keep = idx < (row[:, None] + 1) * n4          # inside the file
+        torch.view_as_real(imp if shaped else raw).view(-1, 2) \
+            .index_add_(0, idx[keep], torch.view_as_real(
+                wave.to(torch.complex64)[keep]))
+    spec = torch.fft.fft(raw) + torch.fft.fft(imp) * h
+    del raw, imp
+    sub = spec[:, kb % n4]                           # (C, 2 half + 1)
+    del spec
+    rot = torch.as_tensor(np.exp(2j * np.pi * phase[sel]) * (p.n / n4),
+                          dtype=torch.complex64, device=dev)
+    off_hz = np.array([_freq(p, p.carriers[ci]) - p.center for ci in sel])
+    gb = torch.as_tensor(np.round(off_hz * rec_s).astype(np.int64),
+                         device=dev)[:, None] + kb
+    val = torch.view_as_real(sub * rot[:, None])
+    for par in (0, 1):      # neighbours' bands overlap: add the even
+        # and the odd carriers apart, so no call adds twice to a bin
+        # and the sum is the same on every run
+        torch.view_as_real(big).index_add_(
+            0, (gb[par::2] % p.n).reshape(-1),
+            val[par::2].reshape(-1, 2))
+
+
 def _freq(p: Plan, c: Carrier) -> float:
-    """A carrier's center, on its grid line."""
-    return p.band_base + GRID * c.arfcn
+    """A carrier's center: on its grid line, half a channel up for an
+    even width (channelizer.arfcn.Channel.frequency's rule)."""
+    return p.band_base + GRID * (c.arfcn + 0.5 * (c.width % 2 == 0))

@@ -12,7 +12,7 @@ off, on, on, off.  Writes one JSON object to --out and prints it:
 
   * `walls_ms`: the stretch's iteration walls, profiler off and on;
   * `sections_ms`: the stretch's sections a block, off and on;
-  * `rx`: rxtrace.read of the last profiled run, with `covered`, the
+  * `rx`: trace.read's `rx` of the last profiled run, with `covered`, the
     share of the device's idle time from the first rx.block's start to
     the last one's end that lies inside a range below rx.block, and
     `pb_idle_gaps`, the same run's idle time by benchmark span;
@@ -113,7 +113,7 @@ def measure(cfg: dict, mix: dict, seed: int, dev, cache: str) -> dict:
         os.makedirs(cache, exist_ok=True)
         st["prof"].export_chrome_trace(path)
         tr = trace.read(path)
-        rx = rxtrace.read(path)
+        rx = tr.get("rx", {})
         os.remove(path)
         out["per_block"] = rxtrace.per_block(rx, got["counts"])
         if rx.get("blocks"):

@@ -11,7 +11,9 @@ For each seed: the cell's recordings, each through the receiver once,
 judged as a benchmark run judges them, the channel bank's error against
 the plain reference beside its control's (the same reference with fp8
 DFT operands), and the carrier streams' error against the plain
-resampler beside its control's (TF32 operands).  Imports and the
+resampler beside its control's (TF32 operands), and at a rate off the
+grid the pre-resampled capture's error against the plain pre-resampler
+beside its control's (TF32 operands).  Imports and the
 kernels' build are paid once.  One JSON line a seed, with every wrong or
 missed frame before it.
 `--fault NAME` plants one of portbench/faults.py under every run (the
@@ -37,12 +39,13 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True)
-    ap.add_argument("--fault", choices=sorted(faults.FAULTS))
+    every_fault = {**faults.FAULTS, **faults.OFF_GRID_FAULTS}
+    ap.add_argument("--fault", choices=sorted(every_fault))
     ap.add_argument("--f32-dft", action="store_true")
     args = ap.parse_args()
     import torch
 
-    from portbench import harness, run, scene
+    from portbench import check, harness, run, scene
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         bench = json.load(f)
     if any(w["name"] == args.workload for w in bench["workloads"]):
@@ -56,7 +59,7 @@ def main() -> int:
                                traffic + ".json")) as f:
             mix = json.load(f)
     dev = torch.device("cuda", 0)
-    fault = faults.FAULTS.get(args.fault)
+    fault = every_fault.get(args.fault)
 
     def hook(rx):
         if args.f32_dft:
@@ -75,8 +78,8 @@ def main() -> int:
             warm = True
         tot = dict(wrong=0, leaked=0, missed=0, unlocked=0, unjudged=0,
                    due=0)
-        unsent = []
-        errs, ctrl, walls, serr, sctrl = [], [], [], [], []
+        unsent, by_arfcn = [], {}
+        errs, ctrl, walls, serr, sctrl, perr, pctrl = ([] for _ in range(7))
         for i in range(len(plans)):
             rec = h.run(i)
             walls.append(rec.wall)
@@ -84,20 +87,26 @@ def main() -> int:
             for k in tot:
                 tot[k] += r[k]
             unsent.append(r["unsent"])
-            for line in r["findings"][:25]:
+            check.add_by_arfcn(by_arfcn, r["by_arfcn"])
+            for line in check.rare_first(r["findings"],
+                                         r["by_arfcn"])[:25]:
                 print(f"seed {seed} rec {i}: {line}")
             errs.append(harness.bank_check(h, rec))
             ctrl.append(harness.bank_check(h, rec, fp8=True))
             serr.append(harness.stream_check(h, rec))
             sctrl.append(harness.stream_check(h, rec, tf32=True))
+            perr.append(harness.pre_check(h, rec))
+            pctrl.append(harness.pre_check(h, rec, tf32=True))
+        pre = {} if perr[0] is None else dict(pre_err=max(perr),
+                                              pre_err_tf32=min(pctrl))
         print(json.dumps(dict(seed=seed, fault=args.fault,
                               f32_dft=args.f32_dft,
                               **tot, unsent=sum(unsent),
                               unsent_rec=max(unsent),
                               bank_err=max(errs), bank_err_fp8=min(ctrl),
                               stream_err=max(serr),
-                              stream_err_tf32=min(sctrl),
-                              walls=walls,
+                              stream_err_tf32=min(sctrl), **pre,
+                              by_arfcn=by_arfcn, walls=walls,
                               seconds=time.perf_counter() - t0)),
               flush=True)
         del h

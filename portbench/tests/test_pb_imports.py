@@ -8,7 +8,7 @@ import os
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "gmr1_tpu", "chip_smoke"}
 PLAIN = ("coding.py", "modem.py", "scene.py", "bank.py", "rrc.py",
-         "check.py", "work.py", "trace.py")
+         "pre.py", "check.py", "work.py", "trace.py")
 
 
 def _imports(path):

@@ -1,15 +1,16 @@
 """The readers of the program's own spans and counts, on a synthetic
 chrome trace and synthetic contexts: trace.read gives the keys it has
-always given, with the same values, on a trace that holds `rx.*` ranges;
-rxtrace.read sums launches, device time and idle time by range (idle
-time that straddles a range's edge included); and each new reader gives
-its value, or None without what it reads."""
+always given, with the same values, on a trace that holds `rx.*` ranges,
+and rxtrace's reading of them under `rx`; rxtrace.read sums launches,
+device time and idle time by range (idle time that straddles a range's
+edge included); each new reader gives its value, or None without what
+it reads; and a reader sees the window's summed counts."""
 
 import json
 
 import pytest
 
-from portbench import harness, rxtrace, trace
+from portbench import harness, run, rxtrace, trace
 
 US = 1e-6
 # name, start, end (microseconds); the program's ranges on thread 1
@@ -61,7 +62,10 @@ OLD = {"busy_s": 0.0003, "window_s": 0.0006399999999999999,
 
 @pytest.mark.parametrize("rx", [RX, []], ids=["rx_ranges", "no_rx_ranges"])
 def test_trace_read_ignores_rx_ranges(tmp_path, rx):
-    assert trace.read(_trace(tmp_path, rx=rx)) == OLD
+    path = _trace(tmp_path, rx=rx)
+    got = trace.read(path)
+    assert got.pop("rx") == rxtrace.read(path)
+    assert got == OLD
 
 
 def test_rx_sums(tmp_path):
@@ -132,3 +136,24 @@ def test_reader_none_without_its_source(tmp_path, name):
     read = harness.load_readers([name])[name]
     assert read(_ctx(tmp_path, dict(phase=0.012))) is None
     assert read(dict(_ctx(tmp_path, PROF), iters=0)) is None
+
+
+def test_reader_sees_counts():
+    """run.context, which every reader is handed, sums the window's
+    receivers' counts (Run.counts, a copy of rx.counts) and sections."""
+    runs = [harness.Run(plan=None, n=0, wall=0.0, sent=[], reads=[],
+                        speech={}, locked={}, prof=dict(PROF), iters=4,
+                        counts=dict(COUNTS, **{"phase.slots": s}))
+            for s in (7, 9)]
+    ctx = run.context({}, {}, runs)
+    assert ctx["counts"] == {k: 2 * v for k, v in COUNTS.items()} | {
+        "phase.slots": 16}
+    assert (ctx["runs"], ctx["iters"]) == (2, 8)
+    assert ctx["prof"] == pytest.approx({k: 2 * v for k, v in PROF.items()})
+
+    def read(c):       # a reader of counts, as a later metric's would be
+        return c["counts"]["read.ccch"] / c["counts"]["dec.ccch"]
+    assert read(ctx) == 1.0
+    for name in WANT:
+        assert harness.load_readers([name])[name](
+            dict(ctx, trace=None)) == pytest.approx(WANT[name])

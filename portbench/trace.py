@@ -5,7 +5,8 @@ timeline.  A kernel belongs to a family by its name (the hand-written
 kernels) or by the benchmark span its launch happened in (the channel
 DFT's cast and product run inside the `pb.dft` span).  An idle gap is
 labelled with the innermost `pb.*` span the host was in at the gap's
-middle.
+middle.  The program's own `rx.*` ranges are read beside them
+(rxtrace.py) and handed over under the key `rx`.
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ def read(path: str, t0_us: float | None = None,
          t1_us: float | None = None) -> dict:
     """Busy seconds, each family's device seconds and launches, the top
     device operations and the idle gaps by host span, over [t0, t1] (the
-    trace's own extent where None)."""
+    trace's own extent where None); under `rx`, rxtrace's reading of the
+    program's ranges (empty without them)."""
+    from portbench import rxtrace      # which imports this module
     with open(path) as f:
         ev = json.load(f)["traceEvents"]
     dev = [e for e in ev if e.get("cat") in DEVICE_CATS and "dur" in e]
@@ -91,4 +94,5 @@ def read(path: str, t0_us: float | None = None,
                 families={k: tuple(v) for k, v in fam.items()},
                 device_ops=[[n, s] for n, s in top],
                 idle_gaps=sorted(([n, s] for n, s in gaps.items()),
-                                 key=lambda x: -x[1])[:10])
+                                 key=lambda x: -x[1])[:10],
+                rx=rxtrace.from_events(ev))

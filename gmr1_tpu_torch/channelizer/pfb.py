@@ -22,8 +22,9 @@ Counterpart of gmr1_tpu/channelizer/pfb.py:
                (`StreamPreResampler`: one 2-D GEMM a block).
   extraction   per-carrier channel select + RRC resample to sps x symbol
                rate; wide carriers (2/3/5 subchannels) rotate-and-sum at
-               the output rate (`Channelizer.extract`, and its streamed
-               form `WideStreamer`).
+               the output rate with the subchannels' delays matched
+               (`Channelizer.sub_phases`; `Channelizer.extract`, and its
+               streamed form `WideStreamer`).
 """
 
 from __future__ import annotations
@@ -289,6 +290,8 @@ class ArbResampler:
         h[:len(t)] = t
         # branch p taps h[p::L], applied to x[k], x[k-1], ...
         self._setup(ratio, h.reshape(tpb, n_phases).T.copy(), ratio_frac)
+        # group delay of the (symmetric) taps, in input samples
+        self.delay = (len(t) - 1) / (2.0 * n_phases)
 
     @classmethod
     def from_branches(cls, ratio: float,
@@ -311,6 +314,7 @@ class ArbResampler:
                 raise ValueError(f"ratio {ratio} != {num}/{den}")
         self.branches = branches                   # (L, tpb)
         self.l, self.tpb = branches.shape
+        self.delay = None                          # unknown taps
 
     @lru_cache(maxsize=8)
     def _geometry(self, n_in: int):
@@ -548,6 +552,58 @@ class StreamPreResampler:
         return out, n_valid
 
 
+BAND_MARGIN_DB = 20.0   # a usable column's carrier over the image on it
+
+
+def _gain(h: np.ndarray, f, rate: float) -> np.ndarray:
+    """|H(f)| of the taps h at the sample rate `rate`, for each f."""
+    n = np.arange(len(h))
+    return np.abs(np.exp(-2j * np.pi * np.outer(np.atleast_1d(f) / rate, n))
+                  @ np.asarray(h, np.float64))
+
+
+def image_response(rr: ArbResampler, samp_rate: float,
+                   n_chans: int) -> tuple[int, np.ndarray, np.ndarray]:
+    """How the pre-resampler `rr` passes carriers and their images.
+
+    The pre-resampler takes the capture from samp_rate onto the grid
+    rate n_chans x 31.25 kHz.  Its prototype passes the first image of a
+    carrier at offset f, the copy at f - samp_rate, with gain H(samp_rate
+    - f), and the output's rate folds that copy back to f + (grid rate -
+    samp_rate): k = round((grid rate - samp_rate) / 31.25 kHz) columns
+    outward (1 at 30.72 MS/s), on either side of the centre.  Returns
+    (k, own, image): own[c] = H(c x 31.25 kHz), the gain of a carrier c
+    columns from the centre, and image[c] = H(samp_rate - (c - k) x
+    31.25 kHz), that of the image column c - k throws onto column c
+    (0 for c < k), both read off rr's prototype, for c < n_chans / 2."""
+    h = rr.branches.T.reshape(-1)                         # h[L i + p]
+    grid_rate = n_chans * BASE_BANDWIDTH
+    k = int(round((grid_rate - samp_rate) / BASE_BANDWIDTH))
+    c = np.arange(n_chans // 2)
+    resp = _gain(h, np.concatenate([c * BASE_BANDWIDTH,
+                                    samp_rate - (c - k) * BASE_BANDWIDTH]),
+                 rr.l * float(samp_rate))
+    own, image = resp[:len(c)], resp[len(c):]
+    image[c < k] = 0.0
+    return k, own, image
+
+
+def usable_band(own: np.ndarray, image: np.ndarray) -> int:
+    """Half-width, in columns from the centre, of the band a receiver
+    behind the pre-resampler can separate: column c is usable when its
+    own carrier (own[c]) stands BAND_MARGIN_DB above the image thrown
+    onto it (image[c], as the column's own filters pass it); the band is
+    the columns out to the first that is not.  On an H100 at 30.72 MS/s
+    with every column acquired, columns at 9.1-12.7 dB lost about 1.7e-4
+    of their frames and none from 13.2 dB up lost any in 78,000: 20 dB
+    keeps the band's edge 7 dB above the last loss.  Images always fall
+    outward, so no carrier beyond the band reaches a column inside it;
+    an image inside it that falls on a silent column is refused by the
+    acquisition (Channelizer.image_db)."""
+    ok = own[1:] >= image[1:] * 10.0 ** (BAND_MARGIN_DB / 20.0)
+    return int(np.argmin(ok)) if not ok.all() else len(own) - 1
+
+
 # --------------------------------------------------------------------------
 # Full channelizer front-end
 # --------------------------------------------------------------------------
@@ -586,8 +642,33 @@ class Channelizer:
         else:         # looser filter (:430-437)
             taps = filters.low_pass(1.0, mid_rate, cw * 0.5, cw * 0.25)
         self.analyzer = PFBAnalyzer(self.n_chans, taps)
+        # the prototype's group delay (it is symmetric), seconds
+        self.analysis_delay = (len(taps) - 1) / 2.0 / mid_rate
         self.chan_rate = 2.0 * cw                 # 2x oversampled
         self._resamplers: dict = {}
+        # half-width of the columns the receiver can separate (None on
+        # the grid: all of them); image_step k and image_db[c], in dB,
+        # the image column c - k throws onto column c against column
+        # c - k's own carrier, c columns out from the centre either side.
+        # The image lands (grid rate - samp_rate) - k x 31.25 kHz off its
+        # column's centre, where the column's own filters (the analysis
+        # prototype, the RRC) pass it by chan_gain against the carrier.
+        self.band = self.image_step = self.image_db = None
+        if self.pre_resamp is not None:
+            k, own, image = image_response(self.pre_resamp, samp_rate,
+                                           self.n_chans)
+            off = mid_rate - samp_rate - k * cw
+            rrc = self._rrc_resampler(1)
+            rh, rrate = rrc.branches.T.reshape(-1), rrc.l * self.chan_rate
+            chan_gain = float(
+                _gain(taps, off, mid_rate)[0] / _gain(taps, 0.0, mid_rate)[0]
+                * _gain(rh, off, rrate)[0] / _gain(rh, 0.0, rrate)[0])
+            image = image * chan_gain
+            self.band = usable_band(own, image)
+            self.image_step = k
+            with np.errstate(divide="ignore"):
+                self.image_db = 20.0 * np.log10(
+                    image / own[np.maximum(np.arange(len(own)) - k, 0)])
 
     def freq2index(self, freq: float) -> int | None:
         """(:485-491)"""
@@ -626,6 +707,25 @@ class Channelizer:
             self._resamplers[key] = ArbResampler(ratio)
         return self._resamplers[key]
 
+    def sub_phases(self, ch: Channel) -> np.ndarray:
+        """Phase (radians) each subchannel of a wide carrier takes on top
+        of its rotation to df = its offset from the carrier's centre.
+
+        Subchannel k's bank column is its band moved to baseband by k x
+        31.25 kHz against the input's own sample index, then delayed by
+        the analysis prototype and the subchannel resampler (tau, both
+        linear phase): at output time t it holds the carrier at t - tau,
+        while rotating by df t turns it as at t.  Each subchannel is off
+        by 2 pi df tau, a different phase each, and the subchannels do
+        not add up where their bands cross (the reference's
+        pfb_synthesizer matches the delays, utils/gmr1_rx_sdr.py:550-551,
+        577-583).  This phase, -2 pi df tau, undoes it."""
+        tau = self.analysis_delay \
+            + self._sub_resampler(ch.width).delay / self.chan_rate
+        turns = np.array([(sub.frequency - ch.frequency) * tau
+                          for sub in ch.subchannels])
+        return -2.0 * np.pi * (turns - np.round(turns))
+
     def wide_streamer(self, ch: Channel, block_rows: int) -> "WideStreamer":
         """Streamed form of extract() for a wide carrier: feed bank-row
         blocks, get stream chunks that concatenate to the offline extract
@@ -646,7 +746,7 @@ class Channelizer:
         out_rate = BASE_SYMRATE * ch.width * self.sps
         acc = None
         up = self._sub_resampler(ch.width)
-        for sub in ch.subchannels:
+        for sub, phi in zip(ch.subchannels, self.sub_phases(ch)):
             idx = self.freq2index(sub.frequency)
             if idx is None:
                 return None
@@ -658,7 +758,8 @@ class Channelizer:
             period = _phase_period(df, out_rate)
             n = torch.arange(s.shape[0], device=s.device) % period
             s = cplx.mul(s, cplx.expi((2.0 * np.pi * df / out_rate)
-                                      * n.to(torch.float32)))
+                                      * n.to(torch.float32)
+                                      + np.float32(phi)))
             acc = s if acc is None else acc + s
         return self._rrc_resampler(ch.width)(acc)
 
@@ -703,6 +804,7 @@ class WideStreamer:
         dfs = np.asarray([sub.frequency - ch.frequency
                           for sub in ch.subchannels], np.float64)
         self._dphi = (2.0 * np.pi * dfs / out_rate).astype(np.float32)
+        self._phi = chz.sub_phases(ch).astype(np.float32)
         self._periods = np.asarray([_phase_period(df, out_rate)
                                     for df in dfs], np.int64)
         # the ratio-1 FIR y[n] = sum_i fir[i] xf[n + t_fir - i] as a
@@ -737,7 +839,8 @@ class WideStreamer:
                + torch.arange(self.n_out, device=dev)) \
             % torch.as_tensor(self._periods, device=dev)[:, None]
         ph = torch.as_tensor(self._dphi, device=dev)[:, None] \
-            * idx.to(torch.float32)
+            * idx.to(torch.float32) \
+            + torch.as_tensor(self._phi, device=dev)[:, None]
         acc = torch.sum(cplx.mul(s, cplx.expi(ph)), dim=0)    # (n, 2)
         xf = torch.cat([hist_fir, acc])
         y = torch.nn.functional.conv1d(

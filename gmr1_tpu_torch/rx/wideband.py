@@ -12,10 +12,14 @@ in, every carrier's BCCH, CCCH, TCH3 (speech, FACCH3, DKAB) and TCH9
                window (one gather per block), then fine TOA, frequency
                and SNR; with `beams` > 1 every ARFCN forks up to `beams`
                carriers gated against its strongest beam
-               (gmr1_rx.c:643-741).
+               (gmr1_rx.c:643-741).  Off the grid only the columns of
+               the band the pre-resampler lets it separate
+               (Channelizer.band) are candidates, and a candidate that
+               is the image of its inward neighbour's carrier is refused.
   pre-resample an off-grid sample rate lands on the 31.25 kHz grid block
                by block through the exact-rational StreamPreResampler
-               (the raw tail stays on the host, one GEMM a block).
+               (the raw tail stays on the host, one GEMM a block; the
+               `pre` section).
   ingest step  once per TDMA block (block_frames frames, 0.32 s at 8):
                PFB analysis of the block with the carried overlap-save
                halo -> per-carrier RRC resample by ONE per-frame window
@@ -424,10 +428,15 @@ class WidebandReceiver:
         # some phase, "read.<kind>" whose result a walk read; carrier
         # slots: "phase.slots" the block phases' control half ran on,
         # "phase.traffic_slots" their traffic half; accumulated across
-        # run()
+        # run(); "acq.out_of_band": FCCH candidates the acquisition
+        # refused for lying outside the usable band (Channelizer.band),
+        # "acq.image": those refused as the image of the inward
+        # neighbour's carrier; "pre.blocks": blocks the pre-resampler made
         self.counts: dict[str, int] = {
             f"{w}.{k}": 0 for w in ("dec", "read") for k in WINDOW_KINDS}
-        self.counts.update({"phase.slots": 0, "phase.traffic_slots": 0})
+        self.counts.update({"phase.slots": 0, "phase.traffic_slots": 0,
+                            "acq.out_of_band": 0, "acq.image": 0,
+                            "pre.blocks": 0})
         # the block reader's worker time, one entry a job taken,
         # accumulated across run() (off the main thread: not a section)
         self.reader_s: list[float] = []
@@ -699,7 +708,9 @@ class WidebandReceiver:
         count; off-grid rates come through the pre-resampler, as a tensor
         on the device."""
         if self._pre is not None:
-            x, nv = self._pre.produce_block()
+            with span("pre", self.prof):
+                x, nv = self._pre.produce_block()
+            self.counts["pre.blocks"] += 1
             return x, int(nv)
         return self._pad(self._pull(self.n_block))
 
@@ -794,6 +805,32 @@ class WidebandReceiver:
     def _log(self, msg: str) -> None:
         if self.verbose:
             print(msg)
+
+    def _in_band(self, col: int) -> bool:
+        """Does column col lie inside the band the front end can
+        separate (every column on the grid)?"""
+        band, m = self.chz.band, self.chz.n_chans
+        return band is None or abs(col - m if col >= m // 2 else col) <= band
+
+    def _images(self, toa: np.ndarray, energy: np.ndarray) -> np.ndarray:
+        """(n_chans, beams) bool: the FCCH candidates that are the image
+        of their inward neighbour's carrier (Channelizer.image_db), off
+        the grid.  An image is a copy of that carrier: the same burst at
+        the same time, image_db below it.  A candidate is refused when a
+        candidate of column c - k (k = Channelizer.image_step columns
+        inward) starts within a symbol of it and the candidate's burst
+        energy lies nearer that image level than the neighbour's own, in
+        dB: a carrier of its own on an empty column's place stands about
+        level with its neighbour."""
+        m, k = self.chz.n_chans, self.chz.image_step
+        s = np.arange(m) - m * (np.arange(m) >= m // 2)
+        inner = (s - k * np.sign(s)) % m
+        lim = self.chz.image_db[np.minimum(np.abs(s), m // 2 - 1)] / 2.0
+        with np.errstate(divide="ignore", invalid="ignore"):
+            db = 10.0 * np.log10(energy[:, :, None]
+                                 / energy[inner][:, None, :])
+        near = np.abs(toa[:, :, None] - toa[inner][:, None, :]) <= self.sps
+        return np.any(near & (db < lim[:, None, None]), axis=2)
 
     def _col2arfcn(self, col: int) -> int:
         signed = col - self.chz.n_chans if col >= self.chz.n_chans // 2 \
@@ -934,6 +971,9 @@ class WidebandReceiver:
         cand = []                           # (col, beam, s0)
         per_block: list[list[int]] = [[] for _ in range(n_abl)]
         for col in range(m):
+            if not self._in_band(col):
+                self.counts["acq.out_of_band"] += int(valid[col].sum())
+                continue
             if self.arfcn_filter is not None \
                and self._col2arfcn(col) not in self.arfcn_filter:
                 continue
@@ -948,6 +988,8 @@ class WidebandReceiver:
         toa = np.zeros(toa_r.shape, np.int64)
         ferr = np.zeros(toa_r.shape, np.float32)
         snr = np.full(toa_r.shape, np.nan, np.float32)  # non-cand: skip
+        energy = np.full(toa_r.shape, np.nan, np.float32)
+        images = self.chz.image_db is not None
         if cand:
             # per replay block: ONE batched window gather
             w3_parts, order = [], []
@@ -965,18 +1007,28 @@ class WidebandReceiver:
             w3 = torch.cat(w3_parts)[upload(np.argsort(order), self.device)]
             off = upload(np.asarray([int(toa_r[c, k]) - s0
                                       for c, k, s0 in cand]), self.device)
-            got = self._fetch_wait(self._fetch_start([dict(zip(
-                ("rel", "ferr", "snr"),
-                _acq_fine_snr(ft, w3, off, sps, blen)))]))
+            fine = dict(zip(("rel", "ferr", "snr"),
+                            _acq_fine_snr(ft, w3, off, sps, blen)))
+            if images:       # the burst's energy at its fine TOA
+                fine["e"] = _energy(_windows_rows(
+                    w3, torch.arange(len(cand), device=w3.device),
+                    fine["rel"][:, None], blen)[:, 0])
+            got = self._fetch_wait(self._fetch_start([fine]))
             for ci, (c, k, s0) in enumerate(cand):
                 toa[c, k] = s0 + int(got["rel"][ci])
                 ferr[c, k] = float(got["ferr"][ci])
                 snr[c, k] = float(got["snr"][ci])
+                if images:
+                    energy[c, k] = float(got["e"][ci])
+        if images:           # an image is no carrier, nor a beam's ref
+            image = self._images(toa, energy)
+            self.counts["acq.image"] += int(image.sum())
+            snr[image] = np.nan
         self.carriers = []
         for col in range(m):
             arfcn = self._col2arfcn(col)
-            if self.arfcn_filter is not None \
-               and arfcn not in self.arfcn_filter:
+            if not self._in_band(col) or (self.arfcn_filter is not None
+                                          and arfcn not in self.arfcn_filter):
                 continue
             finite = np.isfinite(snr[col])
             ref = int(np.nanargmax(snr[col])) if finite.any() else 0

@@ -28,7 +28,8 @@ PREFIX = "rx."
 # section -> the sections it runs inside.  `ingest` runs inside `block`
 # (the next block's read and step, queued behind this block's phase) or,
 # in a block-loop iteration without a block, alone; `step` runs inside
-# `ingest` and, over the acquisition's blocks, inside `acquire`.
+# `ingest` and, over the acquisition's blocks, inside `acquire`, and so
+# does `pre` (the off-grid pre-resampler's block, ahead of the step).
 PARENT: dict[str, tuple[str, ...]] = {
     "phase": ("block",), "fetch": ("block",), "walk": ("block",),
     "walk_tch3": ("block",), "facch": ("block",), "tch9": ("block",),
@@ -36,6 +37,7 @@ PARENT: dict[str, tuple[str, ...]] = {
     "meta": ("phase",), "dispatch": ("phase",),
     "supp": ("walk_tch3", "tch9"),
     "ingest_wait": ("ingest",), "step": ("ingest", "acquire"),
+    "pre": ("ingest", "acquire"),
     "resample": ("step",),
 }
 

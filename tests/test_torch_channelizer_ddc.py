@@ -10,7 +10,9 @@ against gmr1_tpu's on the same seeded inputs.
     on the same carrier (:285);
   * the CLI in both modes, run in-process with a --block that cuts the
     capture into two blocks: every per-carrier cfile (a narrow and a
-    width-3 carrier) against the JAX CLI's at rtol 1e-4.
+    width-3 carrier) against the JAX CLI's at rtol 1e-4; in pfb mode the
+    wide carrier against gmr1_tpu's synthesis with its subchannels'
+    delays matched, as the port's is.
 """
 
 import numpy as np
@@ -18,7 +20,9 @@ import pytest
 import torch
 
 from gmr1_tpu.channelizer import ddc as j_ddc
+from gmr1_tpu.channelizer import pfb as j_pfb
 from gmr1_tpu.channelizer.__main__ import main as j_main
+from gmr1_tpu.channelizer.arfcn import Channel as j_Channel
 from gmr1_tpu.l1 import bcch as j_bcch
 from gmr1_tpu.sdr import bursts as BU
 from gmr1_tpu.sdr import modem as j_modem
@@ -29,6 +33,8 @@ from gmr1_tpu_torch.channelizer.pfb import Channelizer
 from gmr1_tpu_torch.l1 import bcch
 from gmr1_tpu_torch.ops import cplx
 from gmr1_tpu_torch.sdr import modem
+
+from tests.test_torch_wideband_paths import delay_matched_extract
 
 torch.set_num_threads(2)
 
@@ -127,6 +133,15 @@ def test_cli_matches_jax(rng, tmp_path, mode):
     for a in (515, 507):
         name = f"arfcn_{a}.cfile"
         want = np.fromfile(tmp_path / "j" / name, np.float32)
+        if mode == "pfb" and a == 507:
+            # the port matches its wide carrier's subchannel delays, which
+            # gmr1_tpu's CLI does not: its synthesis with them, block by
+            # block as the CLI channelizes
+            jz = j_pfb.Channelizer(fs, CENTER, sps=4, need_nx=True)
+            wide = j_Channel(507, width=3)
+            want = np.concatenate([delay_matched_extract(
+                jz, np.asarray(jz.process(wb[b:b + block])), wide)
+                for b in range(0, wb.shape[0], block)]).ravel()
         got = np.fromfile(tmp_path / "t" / name, np.float32)
         assert got.shape == want.shape and got.size > 0, (a, got.shape)
         np.testing.assert_allclose(got, want, **TOL)

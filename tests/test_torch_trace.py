@@ -7,7 +7,10 @@ FACCH3, FACCH9 and CSD on one of three carriers), on the CPU.
     running no record_function is entered;
   * under the profiler every rx.block range holds rx.meta, rx.dispatch,
     rx.fetch and rx.walk in that order, rx.step lies inside rx.ingest,
-    and every section of `prof` has its ranges;
+    and every section of `prof` has its ranges; off the grid (the 530
+    kHz capture of tests/test_torch_wideband_paths.py) rx.pre, the
+    pre-resampler's block, lies inside rx.ingest or rx.acquire, and on
+    the grid there is none;
   * in every block-loop iteration a section takes at most the sections
     it runs inside (trace.PARENT), and the outermost ones at most the
     iteration's wall;
@@ -28,6 +31,7 @@ from gmr1_tpu_torch import trace
 from gmr1_tpu_torch.rx.wideband import WINDOW_KINDS
 from gmr1_tpu_torch.rx.wideband import WidebandReceiver as TRx
 
+from tests.test_torch_wideband_paths import FS_OFF, off_grid_capture
 from tests.test_torch_wideband_traffic import e2e_capture
 from tests.test_wideband import CENTER, FS
 
@@ -63,17 +67,32 @@ def runs(tmp_path_factory):
     with mock.patch.object(torch.profiler, "record_function", _no_range):
         plain.run()
     traced = TRx(wb, FS, CENTER, sps=SPS, device="cpu")
+    path = tmp_path_factory.mktemp("trace") / "rx.json"
+    return dict(plain=plain, traced=traced, log=log,
+                ranges=_ranges(traced, path))
+
+
+def _ranges(rx, path):
+    """The rx.* ranges of a profiled run()'s chrome trace at `path`."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        traced.run()
-    path = tmp_path_factory.mktemp("trace") / "rx.json"
+        rx.run()
     prof.export_chrome_trace(str(path))
     ev = json.loads(path.read_text())["traceEvents"]
-    rx = [e for e in ev if e.get("cat") == "user_annotation"
-          and str(e.get("name", "")).startswith(trace.PREFIX)]
-    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"][3:])
-                    for e in rx)
-    return dict(plain=plain, traced=traced, log=log, ranges=ranges)
+    return sorted((e["ts"], e["ts"] + e["dur"], e["name"][3:]) for e in ev
+                  if e.get("cat") == "user_annotation"
+                  and str(e.get("name", "")).startswith(trace.PREFIX))
+
+
+@pytest.fixture(scope="module")
+def off_grid(tmp_path_factory):
+    """The off-grid capture through the pre-resampler, plain and traced."""
+    wb, _si1s = off_grid_capture()
+    plain = TRx(wb, FS_OFF, CENTER, sps=SPS, device="cpu")
+    plain.run()
+    traced = TRx(wb, FS_OFF, CENTER, sps=SPS, device="cpu")
+    path = tmp_path_factory.mktemp("trace") / "off.json"
+    return dict(plain=plain, traced=traced, ranges=_ranges(traced, path))
 
 
 def _outputs(rx):
@@ -129,16 +148,39 @@ def test_every_section_has_ranges(runs, name):
     assert _of(runs["ranges"], name)
 
 
+def test_pre_inside_ingest_off_grid(off_grid):
+    """One rx.pre a block the pre-resampler makes: the acquisition's
+    inside rx.acquire, the block loop's inside rx.ingest."""
+    ranges = off_grid["ranges"]
+    pre = _of(ranges, "pre")
+    ingest, acquire = _of(ranges, "ingest"), _of(ranges, "acquire")
+    assert "pre" in off_grid["traced"].prof and "pre" in \
+        off_grid["plain"].prof
+    assert len(pre) == off_grid["traced"]._pre._n // \
+        off_grid["traced"].n_block
+    for s, e in pre:
+        assert any(a <= s and e <= b for a, b in ingest + acquire)
+    assert any(a <= s and e <= b for s, e in pre for a, b in ingest)
+    assert any(a <= s and e <= b for s, e in pre for a, b in acquire)
+    for s, e in _of(ranges, "step"):     # the step follows its block
+        assert not any(a <= s and e <= b for a, b in pre)
+
+
+def test_no_pre_on_the_grid(runs):
+    assert "pre" not in runs["plain"].prof
+    assert "pre" not in runs["traced"].prof
+    assert not _of(runs["ranges"], "pre")
+
+
 def test_dft_range_without_section(runs):
     assert _of(runs["ranges"], "dft")
     assert "dft" not in runs["traced"].prof
 
 
 @pytest.mark.parametrize("child", sorted(trace.PARENT))
-def test_child_at_most_its_parents(runs, child):
-    rx = runs["plain"]
+def test_child_at_most_its_parents(runs, off_grid, child):
     seen = 0
-    for p in rx.block_profs:
+    for p in runs["plain"].block_profs + off_grid["plain"].block_profs:
         parents = [p[k] for k in trace.PARENT[child] if k in p]
         if child in p and parents:
             seen += 1

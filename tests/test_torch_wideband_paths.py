@@ -6,7 +6,10 @@ captures for each (built here with its helpers).
 
   * StreamPreResampler blocks and Channelizer.extract / WideStreamer
     chunks: within 1e-5 of the block's peak magnitude (float32 sums in
-    another order; measured about 5e-7) and the same valid counts;
+    another order; measured about 5e-7) and the same valid counts; a wide
+    carrier against gmr1_tpu's synthesis with its subchannels' delays
+    matched (the port's fix, which gmr1_tpu lacks), and restored by it
+    to -35 dB;
   * WidebandReceiver: identical (arfcn, type, fn, tn, bytes) frame
     lists, the same carriers at the same aligns, and the decoded SI1s
     match the synthesis truth.
@@ -87,6 +90,37 @@ def test_arb_resampler_call_matches(rng):
     near(tr(torch.from_numpy(x)).numpy(), jr(x))
 
 
+def _taps_len(h) -> int:
+    """Length of a zero-padded tap vector (its last nonzero tap + 1)."""
+    return int(np.flatnonzero(np.asarray(h)).max()) + 1
+
+
+def delay_matched_extract(jz, bank, ch):
+    """gmr1_tpu's wide-carrier synthesis (its subchannel resampler, its
+    rotation, its RRC) with each subchannel turned by -2 pi df tau: tau
+    the group delay of gmr1_tpu's analysis prototype and subchannel
+    resampler, read off their taps.  gmr1_tpu rotates without it: the
+    port matches the delays, as the reference's synthesizer does."""
+    up = jz._sub_resampler(ch.width)
+    h_a = np.asarray(jz.analyzer.h_poly).T.ravel()       # (P M,) padded
+    tau = (_taps_len(h_a) - 1) / 2.0 / (jz.n_chans * 31250.0) \
+        + (_taps_len(up.branches.T.ravel()) - 1) / (2.0 * up.branches.shape[0]) \
+        / jz.chan_rate
+    out_rate = ch.symbol_rate * SPS
+    acc = 0.0
+    for sub in ch.subchannels:
+        s = np.asarray(up(bank[:, jz.freq2index(sub.frequency)]))
+        df = sub.frequency - ch.frequency
+        turns = df * tau - np.round(df * tau)
+        # gmr1_tpu's float32 phase (index mod its period), plus the turn
+        n = np.arange(len(s)) % j_pfb._phase_period(df, out_rate)
+        ph = np.float32(2.0 * np.pi * df / out_rate) * n.astype(np.float32) \
+            + np.float32(-2.0 * np.pi * turns)
+        acc = acc + cplx.to_complex(s) * np.exp(1j * ph.astype(np.float64))
+    acc = np.stack([acc.real, acc.imag], -1).astype(np.float32)
+    return np.asarray(jz._rrc_resampler(ch.width)(acc))
+
+
 @pytest.mark.parametrize("width", [3, 5])
 def test_wide_streamer_and_extract_match(rng, width):
     jz = j_pfb.Channelizer(1e6, CENTER, sps=SPS, need_nx=True)
@@ -98,14 +132,62 @@ def test_wide_streamer_and_extract_match(rng, width):
     wb = rng.normal(size=(3 * rows * jz.analyzer.hop, 2)).astype(np.float32)
     bank = np.asarray(jz.process(wb))
     tbank = torch.from_numpy(np.array(bank))
-    jw, tw = jz.wide_streamer(jch, rows), tz.wide_streamer(tch, rows)
-    for b in range(3):
-        blk = np.ascontiguousarray(bank[b * rows:(b + 1) * rows]
-                                   .transpose(1, 0, 2))
-        near(tw.feed(torch.from_numpy(blk)), jw.feed(blk))
-    near(tz.extract(tbank, tch).numpy(), jz.extract(bank, jch))
+    want = delay_matched_extract(jz, bank, jch)
+    tw = tz.wide_streamer(tch, rows)
+    chunks = [tw.feed(torch.from_numpy(np.ascontiguousarray(
+        bank[b * rows:(b + 1) * rows].transpose(1, 0, 2)))) for b in range(3)]
+    near(np.concatenate(chunks), want[:sum(len(c) for c in chunks)])
+    near(tz.extract(tbank, tch).numpy(), want)
     near(tz.extract(tbank, TChannel(512 + 2)).numpy(),
          jz.extract(bank, Channel(512 + 2)))
+
+
+@pytest.mark.parametrize("fs,width", [(2e6, 3), (2e6, 5), (1.92e6, 5)])
+def test_wide_synthesis_restores_the_carrier(fs, width):
+    """A wide carrier (random QPSK, raised-cosine, width x 23.4 ksym/s)
+    through the bank and Channelizer.extract comes back as itself through
+    the same RRC, to within -35 dB at the best delay and gain: the
+    subchannels' delays matched (rotating without it leaves -12.8 dB at
+    2 MS/s, width 5)."""
+    rng = np.random.default_rng(width)
+    center = 1525e6 + 31250.0 * 544
+    ch = TChannel(544, width=width)
+    out_rate = ch.symbol_rate * SPS
+    sym = np.exp(0.5j * np.pi * rng.integers(0, 4, 3000))
+    imp = np.zeros(len(sym) * SPS, complex)
+    imp[::SPS] = sym
+    f = np.abs(np.fft.fftfreq(len(imp), d=1.0 / SPS))
+    lo, hi = 0.325, 0.675
+    rc = np.where(f <= lo, 1.0, np.where(f >= hi, 0.0, 0.5 * (
+        1 + np.cos(np.pi / 0.35 * (f - lo)))))
+    spec = np.fft.fft(imp) * rc
+    n_wb = int(round(len(imp) * fs / out_rate))
+    wspec = np.zeros(n_wb, complex)         # band-limited: exact at fs
+    wspec[:len(imp) // 2] = spec[:len(imp) // 2]
+    wspec[-(len(imp) - len(imp) // 2):] = spec[len(imp) // 2:]
+    x = np.fft.ifft(wspec) * n_wb / len(imp) * np.exp(
+        2j * np.pi * (ch.frequency - center) * np.arange(n_wb) / fs)
+    tz = t_pfb.Channelizer(fs, center, sps=SPS, need_nx=True)
+    bank = tz.process(torch.from_numpy(np.stack([x.real, x.imag], -1)
+                                       .astype(np.float32)))
+    y = cplx.to_complex(tz.extract(bank, ch).numpy()).astype(np.complex128)
+    bb = np.fft.ifft(spec)
+    ref = tz._rrc_resampler(width)(torch.from_numpy(np.stack(
+        [bb.real, bb.imag], -1).astype(np.float32))).double().numpy()
+    ref = ref[:, 0] + 1j * ref[:, 1]
+    n = min(len(y), len(ref))
+    y, ref = y[:n], ref[:n]
+    ff = np.fft.fftfreq(n)
+    t0 = int(np.argmax(np.abs(np.fft.ifft(np.fft.fft(y) * np.conj(
+        np.fft.fft(ref))))))
+    best = np.inf
+    for tau in np.arange(t0 - 1, t0 + 1, 0.05):
+        r = np.fft.ifft(np.fft.fft(ref) * np.exp(-2j * np.pi * ff * tau))
+        r, yy = r[1000:-1000], y[1000:-1000]
+        g = np.vdot(r, yy) / np.vdot(r, r)
+        best = min(best, np.sum(np.abs(yy - g * r) ** 2)
+                   / np.sum(np.abs(yy) ** 2))
+    assert 10 * np.log10(best) < -35.0
 
 
 def multibeam_capture():
